@@ -1,0 +1,360 @@
+"""Host-side SLAM engine: frontend + tracking + local mapping.
+
+Port of ``orbslam2_tpu/runtime/slam.py`` for the stereo sensor with loop
+closing off: the Tracking::Track state machine (motion model, the ×2
+widen retry, the TrackReferenceKeyFrame fallback, the keyframe decision)
+on the host, all array work in tensors on ``device``.  Keyframe and
+map-point rows are reused after culling; trajectory entries whose
+reference keyframe is culled are rebased onto its parent.
+
+Not yet ported (each raises ``NotImplementedError`` naming the ROADMAP
+item): loop closing, RGB-D and mono tracking, localization mode and
+relocalization.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from orbslam2_tpu_torch.config import MONOCULAR, STEREO, SlamConfig
+from orbslam2_tpu_torch.models import frame as frame_mod
+from orbslam2_tpu_torch.models import map_state as M
+from orbslam2_tpu_torch.runtime import local_mapping, tracking
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to orbslam2_tpu_torch yet (ROADMAP.md, "
+        f"Queue 1: {item})")
+
+
+@dataclasses.dataclass
+class TrajectoryEntry:
+    """Per-frame pose relative to its reference keyframe at track time."""
+
+    timestamp: float
+    Tcr: np.ndarray
+    ref_kf: int
+    lost: bool
+
+
+class SlamEngine:
+    """Single-process stereo engine on one torch device."""
+
+    def __init__(self, cfg: SlamConfig, enable_loop_closing: bool = True,
+                 device=None):
+        if cfg.sensor != STEREO:
+            raise _not_ported("RGB-D and mono tracking",
+                              "the RGB-D/mono frontends and ops/initializer")
+        if enable_loop_closing:
+            raise _not_ported("loop closing", "ops/bow.py, "
+                              "models/keyframe_db.py, runtime/loop_closing.py;"
+                              " pass enable_loop_closing=False")
+        self.cfg = cfg
+        self.device = torch.device(device if device is not None else "cpu")
+        self.frontend = frame_mod.make_frontend_stereo(cfg)
+        self.fns = tracking.make_tracking_fns(cfg)
+        self.f_mapping_step = local_mapping.make_mapping_step(cfg)
+        self.mapping_fns = local_mapping.MappingFns(cfg)
+
+        self.ms = M.empty_map(cfg, device=self.device)
+        self.state = tracking.NO_IMAGES_YET
+        self.n_kfs = 0                # LIVE keyframes
+        self.kf_ordinal = 0           # keyframes ever inserted (monotonic)
+        self.n_live_points = 0
+        self.frame_id = 0
+        self.last_kf_frame_id = 0
+        self.ref_kf = 0
+        self.velocity: Optional[np.ndarray] = None
+        self.last_Tcw: Optional[np.ndarray] = None
+        self.last_assoc = None        # device [N] int32
+        self.last_inlier = None       # device [N] bool
+        self.last_fd = None
+        self.trajectory: List[TrajectoryEntry] = []
+        self.localization_only = False
+        self._free_kf_slots = set(range(cfg.capacity.max_keyframes))
+        self._capacity_warned = False
+        self._zeros_p = torch.zeros(cfg.capacity.max_map_points,
+                                    dtype=torch.int32, device=self.device)
+        self._culled_remap = {}       # victim slot → (parent slot, Tcp)
+        self.stats = {"kf_inserted": 0, "mp_created": 0, "mp_culled": 0,
+                      "kf_culled": 0, "ba_outliers": 0, "reloc": 0,
+                      "mp_fused": 0, "loops_closed": 0}
+
+    # --------------------------------------------------------- frame entry
+    def track_stereo(self, left: np.ndarray, right: np.ndarray,
+                     timestamp: float) -> Optional[np.ndarray]:
+        """One rectified uint8 stereo pair → Tcw [4, 4] or None (lost)."""
+        def up(img):
+            arr = np.ascontiguousarray(img, dtype=np.uint8)
+            return torch.from_numpy(arr).to(self.device).to(torch.float32)
+
+        return self._track_common((up(left), up(right)), timestamp)
+
+    def track_rgbd(self, gray, depth, timestamp):
+        raise _not_ported("RGB-D tracking", "the RGB-D/mono frontends")
+
+    def track_monocular(self, gray, timestamp):
+        raise _not_ported("monocular tracking",
+                          "ops/initializer.py and the mono init")
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    # ------------------------------------------------------------ tracking
+    def _track_common(self, pair, timestamp: float) -> Optional[np.ndarray]:
+        if self.localization_only:
+            raise _not_ported("localization mode",
+                              "track_loc_body and runtime/streaming.py")
+        # LOST with ≤5 keyframes → full reset (Tracking.cc:571-580)
+        if self.state == tracking.LOST and self.n_kfs <= 5:
+            self._auto_reset()
+        if self.state in (tracking.NO_IMAGES_YET, tracking.NOT_INITIALIZED):
+            fd = self.frontend(*pair)
+            ok = self._initialize(fd, timestamp)
+            self.frame_id += 1
+            return np.asarray(self.last_Tcw) if ok else None
+        if self.state == tracking.LOST:
+            # relocalization needs the keyframe database of loop closing;
+            # without it the frame is recorded lost, as in the JAX engine
+            self._record_traj(timestamp, None)
+            self.frame_id += 1
+            return None
+
+        t = self.cfg.tracking
+        Tcw_pred = self._t(self._predict_pose())
+        ms = self.ms
+        ref_at_track = self.ref_kf
+        fd = self.frontend(*pair)
+        res = self.fns.track_body(ms, fd, Tcw_pred, self.last_assoc,
+                                  self.last_inlier, ref_at_track, widen=True)
+        ms2 = self.fns.apply_counters(ms, res.visible_mask, res.found_mask)
+        sm = tracking.Summary.of(res)
+        if sm.n_inliers_map < t.local_map_tracking_threshold:
+            # motion model failed → TrackReferenceKeyFrame, then re-run the
+            # two-stage track from the recovered pose
+            ref = self.fns.track_ref_kf(ms, fd, ref_at_track,
+                                        self._t(self.last_Tcw))
+            sm_ref = tracking.Summary.of(ref)
+            if sm_ref.n_matches_mm >= t.min_matches_ref_keyframe:
+                res2 = self.fns.track(ms, fd, ref.Tcw, ref.assoc, ref.inlier,
+                                      ref_at_track)
+                sm2 = tracking.Summary.of(res2)
+                if sm2.n_inliers_map > sm.n_inliers_map:
+                    res, sm = res2, sm2
+                    ms2 = self.fns.apply_counters(ms, res.visible_mask,
+                                                  res.found_mask)
+        self.ms = ms2
+        if sm.n_inliers_map < t.local_map_tracking_threshold:
+            self.state = tracking.LOST
+            self.velocity = None
+            self._record_traj(timestamp, None)
+            self.frame_id += 1
+            return None
+
+        self.state = tracking.OK
+        Tcw = sm.Tcw
+        if self.last_Tcw is not None:
+            self.velocity = Tcw @ np.linalg.inv(self.last_Tcw)
+        self.last_Tcw = Tcw
+        self.last_assoc = res.assoc
+        self.last_inlier = res.inlier
+        if self._need_new_keyframe(sm):
+            self._create_keyframe(fd, res, timestamp)
+        self._append_traj(TrajectoryEntry(timestamp, sm.Tcr, ref_at_track,
+                                          False))
+        self.last_fd = fd
+        self.frame_id += 1
+        return Tcw
+
+    def _initialize(self, fd, timestamp: float) -> bool:
+        """StereoInitialization: needs ≥ 50 features with depth."""
+        if int(torch.sum((fd.depth > 0) & fd.valid)) < 50:
+            return False
+        self.ms, assoc, n_pts = self.fns.init_stereo(
+            self.ms, fd, torch.eye(4, device=self.device), self.frame_id,
+            timestamp)
+        self.n_kfs = 1
+        self.kf_ordinal = 1
+        self._free_kf_slots.discard(0)
+        self.last_Tcw = np.eye(4, dtype=np.float32)
+        self.last_assoc = assoc
+        self.last_inlier = torch.ones(fd.n, dtype=torch.bool,
+                                      device=self.device)
+        self.ref_kf = 0
+        self.state = tracking.OK
+        self.last_kf_frame_id = self.frame_id
+        self.stats["kf_inserted"] += 1
+        self.stats["mp_created"] += int(n_pts)
+        self._record_traj(timestamp, self.last_Tcw)
+        return True
+
+    def _predict_pose(self) -> np.ndarray:
+        if self.velocity is not None:
+            return (self.velocity @ self.last_Tcw).astype(np.float32)
+        return self.last_Tcw.astype(np.float32)
+
+    # -------------------------------------------------- keyframe decision
+    def _need_new_keyframe(self, sm: tracking.Summary) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:1076-1160) with synchronous mapping
+        (the mapper is always idle between frames)."""
+        t = self.cfg.tracking
+        if not self._free_kf_slots and not self._evict_for_capacity():
+            if not self._capacity_warned:
+                warnings.warn(
+                    "keyframe capacity exhausted "
+                    f"(max_keyframes={self.cfg.capacity.max_keyframes}) "
+                    "and no keyframe is evictable", RuntimeWarning)
+                self._capacity_warned = True
+            return False
+        frames_since = self.frame_id - self.last_kf_frame_id
+        n_inliers = sm.n_inliers_map
+        ref_matches = max(
+            sm.ref_tracked3 if self.kf_ordinal > 2 else sm.ref_tracked2, 1)
+        need_close = (sm.n_tracked_close < 100
+                      and sm.n_nontracked_close > 70)
+        th_ref_ratio = 0.75 if self.cfg.sensor != MONOCULAR else 0.9
+        if self.kf_ordinal < 2:
+            th_ref_ratio = 0.4
+        c1a = frames_since >= int(self.cfg.camera.fps)
+        c1b = frames_since >= t.min_frames
+        c1c = (self.cfg.sensor != MONOCULAR
+               and (n_inliers < ref_matches * 0.25 or need_close))
+        c2 = ((n_inliers < ref_matches * th_ref_ratio or need_close)
+              and n_inliers > 15)
+        return (c1a or c1b or c1c) and c2
+
+    # ---------------------------------------------------- keyframe insert
+    def _evict_for_capacity(self) -> bool:
+        """At keyframe-capacity exhaustion, evict the most redundant live
+        keyframe.  Returns True when a slot was freed."""
+        ms2, victim = self.mapping_fns.evict_keyframe(
+            self.ms, self.ref_kf, self.frame_id)
+        if victim < 0:
+            return False
+        self.ms = ms2
+        self._on_kfs_culled(ms2, [victim])
+        self.stats["kf_evicted"] = self.stats.get("kf_evicted", 0) + 1
+        return True
+
+    def _take_kf_slot(self) -> int:
+        slot = min(self._free_kf_slots)
+        self._free_kf_slots.discard(slot)
+        self._culled_remap.pop(slot, None)
+        return slot
+
+    def _append_traj(self, e: TrajectoryEntry) -> None:
+        """Append, rebasing through culled reference keyframes first."""
+        seen = set()
+        while not e.lost and e.ref_kf in self._culled_remap \
+                and e.ref_kf not in seen:
+            seen.add(e.ref_kf)
+            p, Tcp = self._culled_remap[e.ref_kf]
+            e.Tcr = e.Tcr @ Tcp
+            e.ref_kf = p
+        self.trajectory.append(e)
+
+    def _run_mapping_step(self, ms, fd, Tcw, assoc, kf_slot: int,
+                          parent: int, frame_id: int, timestamp: float):
+        ms, stats_dev = self.f_mapping_step(
+            ms, fd, Tcw, assoc, kf_slot, self.kf_ordinal, parent, frame_id,
+            timestamp, self.kf_ordinal >= 3, self.kf_ordinal >= 5,
+            self._zeros_p, self._zeros_p)
+        stats = stats_dev.cpu().numpy()
+        self.kf_ordinal += 1
+        self.n_kfs += 1
+        self.stats["kf_inserted"] += 1
+        self.stats["mp_created"] += int(stats[0]) + int(stats[2])
+        self.stats["mp_culled"] += int(stats[1])
+        self.stats["mp_fused"] += int(stats[3])
+        self.stats["ba_outliers"] += int(stats[4])
+        self.stats["kf_culled"] += int(stats[5])
+        self.n_live_points = int(stats[6])
+        victims = [int(v) for v in stats[7:] if v >= 0]
+        if victims:
+            self._on_kfs_culled(ms, victims)
+        return ms
+
+    def _on_kfs_culled(self, ms, victims: List[int]) -> None:
+        """Rebase trajectory entries off culled reference keyframes onto
+        their spanning-tree parents, then free the slots."""
+        pose = ms.kf_pose.cpu().numpy()
+        parent = ms.kf_parent.cpu().numpy()
+        self.n_kfs -= len(victims)
+        vic = set(victims)
+        remap = {}
+        for v in victims:
+            p = int(parent[v])
+            seen = {v}
+            while p in vic and p not in seen and p >= 0:
+                seen.add(p)
+                p = int(parent[p])
+            p = max(p, 0)
+            remap[v] = (p, (pose[v] @ np.linalg.inv(pose[p])).astype(
+                np.float32))
+        self._culled_remap.update(remap)
+        for e in self.trajectory:
+            if not e.lost and e.ref_kf in remap:
+                p, Tcp = remap[e.ref_kf]
+                e.Tcr = e.Tcr @ Tcp
+                e.ref_kf = p
+        if self.ref_kf in remap:
+            self.ref_kf = remap[self.ref_kf][0]
+        self._free_kf_slots |= vic
+
+    def _create_keyframe(self, fd, res, timestamp: float) -> None:
+        kf_slot = self._take_kf_slot()
+        self.ms = self._run_mapping_step(
+            self.ms, fd, res.Tcw, res.assoc, kf_slot, self.ref_kf,
+            self.frame_id, timestamp)
+        self.ref_kf = kf_slot
+        self.last_kf_frame_id = self.frame_id
+        # new points take part in tracking at once
+        self.last_assoc = self.ms.kf_mp[kf_slot]
+        self.last_inlier = torch.ones_like(self.last_inlier)
+
+    def _auto_reset(self) -> None:
+        """Tracking::Reset in place: clear map and trajectory."""
+        cfg = self.cfg
+        self.ms = M.empty_map(cfg, device=self.device)
+        self.state = tracking.NO_IMAGES_YET
+        self.n_kfs = 0
+        self.kf_ordinal = 0
+        self.n_live_points = 0
+        self.last_kf_frame_id = self.frame_id
+        self.ref_kf = 0
+        self.velocity = None
+        self.last_Tcw = None
+        self.last_assoc = None
+        self.last_inlier = None
+        self.last_fd = None
+        self._free_kf_slots = set(range(cfg.capacity.max_keyframes))
+        self._culled_remap = {}
+        self.trajectory = []
+        self.stats["resets"] = self.stats.get("resets", 0) + 1
+
+    def _record_traj(self, timestamp: float, Tcw: Optional[np.ndarray]):
+        if Tcw is None:
+            self._append_traj(TrajectoryEntry(
+                timestamp, np.eye(4, dtype=np.float32), self.ref_kf, True))
+            return
+        Tref = self.ms.kf_pose[self.ref_kf].cpu().numpy()
+        self._append_traj(TrajectoryEntry(
+            timestamp, (Tcw @ np.linalg.inv(Tref)).astype(np.float32),
+            self.ref_kf, False))
+
+    # ------------------------------------------------------------- outputs
+    def frame_poses(self) -> List[Optional[np.ndarray]]:
+        """Per-frame Tcw through the (BA-corrected) reference keyframes."""
+        kf_pose = self.ms.kf_pose.cpu().numpy()
+        return [None if e.lost else e.Tcr @ kf_pose[e.ref_kf]
+                for e in self.trajectory]
+
+    def map_points(self) -> np.ndarray:
+        """Live map-point cloud [M, 3]."""
+        return self.ms.mp_pos[self.ms.mp_valid].cpu().numpy()
