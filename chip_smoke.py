@@ -17,9 +17,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  path launched by this run;
   5. live call — the engine's TrackReferenceKeyFrame step on the live map,
                  held against the same call with the matcher's plain
-                 version.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+                 version;
+  6. loop      — SlamEngine(STEREO, loop closing on) at the same widths over
+                 the outward orbit (1.25 turns, 72 frames) of
+                 tests/test_loop_closing.py, then finish_gba(): ≥ 85% of
+                 frames tracked, ≥ 1 loop closed, a global BA launched and
+                 merged, ATE < 0.5 m, and hamming_top2 launched from inside
+                 the loop closer's match_for_sim3; per-layer median ms;
+  7. live loop — match_for_sim3 on the closing (current, loop) keyframe
+                 pair of the live map, held against the same call with the
+                 plain version and the same generator state; then the
+                 loop-correction layers and one GBA chunk timed warm on
+                 that pair (phase 6 timed their first calls);
+  8. reloc     — the phase-6 engine set LOST and shown a re-rendered early
+                 frame must relocalize within 0.1 m, launching hamming_top2
+                 from reloc_attempt.
+Every time printed carries the card's name and power limit.  The line
+before the last is the kernels' JSON record (launches per path); the last
+line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +50,9 @@ import torch
 MAX_ABS_ERR = 0
 
 N_FRAMES = 40
+# phase 6: tests/test_loop_closing.py's orbit
+ORBIT_FRAMES, ORBIT_TURNS, ORBIT_RADIUS, ORBIT_Z = 72, 1.25, 4.0, 10.0
+RELOC_FRAME = 2
 # A one-frame camera shake (a yaw jolt, as a handheld or vehicle-mounted
 # rig meets): the motion model mispredicts there and on the frames after,
 # so the engine falls back to TrackReferenceKeyFrame on its main path.
@@ -57,14 +75,14 @@ def phase_device():
     return smi
 
 
-def phase_build():
+def phase_build(smi):
     from orbslam2_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
     build.load("hamming_top2")
     dt = time.perf_counter() - t0
     print(f"[build] hamming_top2.cu → {build.library_path('hamming_top2')} "
-          f"in {dt:.2f} s", flush=True)
+          f"in {dt:.2f} s ({smi})", flush=True)
 
 
 def _cuda_ms(fn, reps=200, warmup=10):
@@ -178,11 +196,13 @@ def _timed(fn, log):
         torch.cuda.synchronize()
         log.append(1e3 * (time.perf_counter() - t0))
         return out
+    run.__wrapped__ = fn
     return run
 
 
 def phase_slice(smi):
-    from orbslam2_tpu_torch.ops.hamming_top2 import hamming_top2
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     reset_launch_counts)
     from orbslam2_tpu_torch.runtime import tracking
     from orbslam2_tpu_torch.runtime.slam import SlamEngine
     from orbslam2_tpu_torch.utils import synthetic
@@ -205,7 +225,7 @@ def phase_slice(smi):
         track=_timed(fns.track, layers["track (fallback re-run)"]))
     eng.f_mapping_step = _timed(eng.f_mapping_step, layers["mapping_step"])
 
-    hamming_top2.launches = 0          # the main path's count starts here
+    reset_launch_counts()               # the main path's count starts here
     frame_ms = []
     t_start = time.perf_counter()
     for i, (left, right) in enumerate(frames):
@@ -220,6 +240,7 @@ def phase_slice(smi):
             raise AssertionError(f"slice: bad pose at frame {i}: {Tcw}")
     total_s = time.perf_counter() - t_start
     engine_launches = hamming_top2.launches
+    by_site = dict(hamming_top2.launches_by_site)
     eng.fns = fns
     err = ate(eng.frame_poses(), poses_gt)
     n_pts = len(eng.map_points())
@@ -232,15 +253,15 @@ def phase_slice(smi):
     for name, ms in layers.items():
         if ms:
             print(f"[slice] layer {name}: {len(ms)} calls, median "
-                  f"{np.median(ms):.1f} ms, total {np.sum(ms):.0f} ms",
-                  flush=True)
+                  f"{np.median(ms):.1f} ms, total {np.sum(ms):.0f} ms "
+                  f"({smi})", flush=True)
     if n_kf < 3 or not err < 0.15 or n_pts < 300:
         raise AssertionError(f"slice: KFs {n_kf}, ATE {err}, points {n_pts}"
                              f" (need ≥3, <0.15 m, ≥300)")
     if engine_launches < 1:
         raise AssertionError("slice: the main path never launched the "
                              "hamming_top2 kernel")
-    return eng, engine_launches
+    return eng, engine_launches, by_site
 
 
 def phase_live_call(eng, engine_launches):
@@ -275,17 +296,233 @@ def phase_live_call(eng, engine_launches):
         raise AssertionError(f"track_ref_kf: only {sm.n_matches_mm} matches")
 
 
+def orbit_scene(rng, n=1000, wall_radius=12.0, z_center=10.0):
+    """Cylindrical wall of sprites around the orbit centre (a copy of
+    tests/test_loop_closing.py:25-35; the test file imports jax)."""
+    from orbslam2_tpu_torch.utils import synthetic
+
+    scene = synthetic.make_scene(rng, n)
+    a = rng.uniform(0, 2 * np.pi, n)
+    r = wall_radius + rng.uniform(-1.5, 1.5, n)
+    scene.points[:] = np.stack([r * np.sin(a), rng.uniform(-5.0, 5.0, n),
+                                z_center - r * np.cos(a)], -1)
+    return scene
+
+
+def outward_orbit(n, radius=4.0, z_center=10.0, turns=1.0):
+    """Camera circling the centre looking outward at the wall (a copy of
+    tests/test_loop_closing.py:38-45)."""
+    from orbslam2_tpu_torch.utils import synthetic
+
+    poses = []
+    for i in range(n):
+        a = 2.0 * np.pi * turns * i / n
+        t = np.array([radius * np.sin(a), 0.0,
+                      z_center - radius * np.cos(a)])
+        poses.append(synthetic.look_ahead_pose(t, yaw=np.pi + a))
+    return poses
+
+
+LOOP_LAYERS = ("detect_step", "match_for_sim3", "refine_sim3",
+               "recount_matches", "correct_loop", "fuse_after_loop")
+
+
+def phase_loop(smi):
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     reset_launch_counts)
+    from orbslam2_tpu_torch.runtime.slam import SlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = bench_config()
+    rng = np.random.default_rng(0)
+    scene = orbit_scene(rng, z_center=ORBIT_Z)
+    poses_gt = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS)
+    frames = [synthetic.render_stereo(scene, cfg.camera, T, rng, 1.0)
+              for T in poses_gt]
+    eng = SlamEngine(cfg, device="cuda")            # loop closing on
+    lc = eng.loop_closer
+    layers = {name: [] for name in LOOP_LAYERS + ("gba_chunk", "gba_merge")}
+    lc.fns = lc.fns._replace(**{name: _timed(getattr(lc.fns, name),
+                                             layers[name])
+                                for name in LOOP_LAYERS})
+    lc.gba.f_chunk = _timed(lc.gba.f_chunk, layers["gba_chunk"])
+    lc.gba.f_merge = _timed(lc.gba.f_merge, layers["gba_merge"])
+
+    reset_launch_counts()               # the loop path's count starts here
+    frame_ms, tracked = [], 0
+    for i, (left, right) in enumerate(frames):
+        t0 = time.perf_counter()
+        Tcw = eng.track_stereo(left, right, 0.1 * i)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        if Tcw is not None:
+            if Tcw.shape != (4, 4) or not np.all(np.isfinite(Tcw)):
+                raise AssertionError(f"loop: bad pose at frame {i}: {Tcw}")
+            tracked += 1
+    t0 = time.perf_counter()
+    eng.finish_gba()
+    torch.cuda.synchronize()
+    finish_ms = 1e3 * (time.perf_counter() - t0)
+    launches = hamming_top2.launches
+    by_site = dict(hamming_top2.launches_by_site)
+
+    errs = []
+    for Te, Tg in zip(eng.frame_poses(), poses_gt):
+        if Te is None:
+            continue
+        Te = Te @ poses_gt[0]        # the engine's world is the first camera
+        errs.append(np.sum((-Te[:3, :3].T @ Te[:3, 3]
+                            + Tg[:3, :3].T @ Tg[:3, 3]) ** 2))
+    err = float(np.sqrt(np.mean(errs)))
+    gst = lc.gba.stats
+    print(f"[loop] {ORBIT_FRAMES} orbit frames: tracked {tracked}, KFs "
+          f"inserted {eng.stats['kf_inserted']}, live KFs {eng.n_kfs}, loops "
+          f"closed {eng.stats['loops_closed']} (last {lc.last_loop}), GBA "
+          f"{gst}, ATE {err:.4f} m, median {np.median(frame_ms):.1f} "
+          f"ms/frame (max {np.max(frame_ms):.0f} ms), finish_gba "
+          f"{finish_ms:.0f} ms, hamming_top2 launches {launches} by path "
+          f"{by_site} ({smi})", flush=True)
+    for name, ms in layers.items():
+        if ms:
+            print(f"[loop] layer {name}: {len(ms)} calls, median "
+                  f"{np.median(ms):.1f} ms, max {np.max(ms):.1f} ms, total "
+                  f"{np.sum(ms):.0f} ms ({smi})", flush=True)
+    if tracked < 0.85 * ORBIT_FRAMES:
+        raise AssertionError(f"loop: tracked only {tracked} frames")
+    if eng.stats["loops_closed"] < 1:
+        raise AssertionError(f"loop: no loop closed ({eng.stats})")
+    if gst["launched"] < 1 or gst["merged"] < 1:
+        raise AssertionError(f"loop: no global BA launched and merged "
+                             f"({gst})")
+    if not err < 0.5:
+        raise AssertionError(f"loop: ATE {err} m (need < 0.5)")
+    if by_site.get("match_for_sim3", 0) < 1:
+        raise AssertionError("loop: match_for_sim3 never launched the "
+                             "hamming_top2 kernel")
+    lc.fns = lc.fns._replace(**{name: getattr(lc.fns, name).__wrapped__
+                                for name in LOOP_LAYERS})
+    lc.gba.f_chunk = lc.gba.f_chunk.__wrapped__
+    lc.gba.f_merge = lc.gba.f_merge.__wrapped__
+    return eng, poses_gt, scene, rng, by_site
+
+
+def phase_live_loop_call(eng):
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.ops import matching
+
+    lc = eng.loop_closer
+    kf, cand = lc.last_loop
+    state = lc.generator.get_state()
+    before = ht2.hamming_top2.launches_by_site.get("match_for_sim3", 0)
+    res, m = lc.fns.match_for_sim3(eng.ms, kf, cand, lc.generator)
+    torch.cuda.synchronize()
+    n_launch = ht2.hamming_top2.launches_by_site.get("match_for_sim3",
+                                                     0) - before
+    g = torch.Generator(device="cuda")
+    g.set_state(state)
+    matching.hamming_top2 = ht2.hamming_top2_reference
+    try:
+        res_p, m_p = lc.fns.match_for_sim3(eng.ms, kf, cand, g)
+    finally:
+        matching.hamming_top2 = ht2.hamming_top2
+    same_m = torch.equal(m, m_p)
+    same_inl = torch.equal(res.inliers, res_p.inliers)
+    print(f"[live-loop] match_for_sim3 KF {kf} ↔ loop KF {cand} on the live "
+          f"map: {int((m >= 0).sum())} matches, {int(res.n_inliers)} RANSAC "
+          f"inliers, ok {bool(res.ok)}; kernel launches {n_launch}; matches "
+          f"equal to the plain version: {same_m}, inlier masks equal: "
+          f"{same_inl}", flush=True)
+    if n_launch < 1:
+        raise AssertionError("match_for_sim3 did not launch hamming_top2")
+    if not (same_m and same_inl):
+        raise AssertionError("match_for_sim3: kernel and plain differ")
+    return res
+
+
+def phase_warm_loop_layers(eng, res, smi, reps=3):
+    """The loop-correction layers again on the live pair, warm: phase 6
+    timed each one's first call on the card (first-use library set-up
+    included).  Results are dropped; the map is not changed."""
+    lc = eng.loop_closer
+    f = lc.fns
+    kf, cand = lc.last_loop
+    ms = eng.ms
+    z8 = torch.zeros(8, dtype=torch.int32, device=eng.device)
+    calls = {
+        "refine_sim3": lambda: f.refine_sim3(ms, kf, cand, res.s12, res.R12,
+                                             res.t12),
+        "recount_matches": lambda: f.recount_matches(
+            ms, kf, cand, res.s12, res.R12, res.t12),
+        "correct_loop": lambda: f.correct_loop(
+            ms, kf, cand, res.s12, res.R12, res.t12, z8, z8, z8.bool()),
+        "fuse_after_loop": lambda: f.fuse_after_loop(ms, kf, cand),
+        "gba_chunk": lambda: lc.gba.f_chunk(
+            ms, torch.ones(ms.K * ms.N, dtype=torch.bool,
+                           device=eng.device), True),
+    }
+    for name, fn in calls.items():
+        log = []
+        for _ in range(reps):
+            _timed(fn, log)()
+        print(f"[warm] {name}: median {np.median(log):.1f} ms over {reps} "
+              f"warm calls ({smi})", flush=True)
+
+
+def phase_reloc(eng, poses_gt, scene, rng, smi):
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     reset_launch_counts)
+    from orbslam2_tpu_torch.runtime import tracking
+    from orbslam2_tpu_torch.utils import synthetic
+
+    if eng.n_kfs <= 5:
+        raise AssertionError(f"reloc: only {eng.n_kfs} live keyframes")
+    T_back = poses_gt[RELOC_FRAME]
+    left, right = synthetic.render_stereo(scene, eng.cfg.camera, T_back, rng,
+                                          1.0)
+    eng.state = tracking.LOST
+    eng.velocity = None
+    n_reloc = eng.stats["reloc"]
+    reset_launch_counts()              # the relocalization path's count
+    t0 = time.perf_counter()
+    Tcw = eng.track_stereo(left, right, 99.0)
+    torch.cuda.synchronize()
+    dt = 1e3 * (time.perf_counter() - t0)
+    by_site = dict(hamming_top2.launches_by_site)
+    if Tcw is None or eng.stats["reloc"] != n_reloc + 1:
+        raise AssertionError("reloc: the engine did not relocalize")
+    Te = Tcw @ poses_gt[0]
+    d = float(np.linalg.norm(-Te[:3, :3].T @ Te[:3, 3]
+                             + T_back[:3, :3].T @ T_back[:3, 3]))
+    print(f"[reloc] LOST → relocalized on a re-render of frame "
+          f"{RELOC_FRAME}: centre error {d:.4f} m, {dt:.0f} ms, "
+          f"hamming_top2 launches by path {by_site} ({smi})", flush=True)
+    if not d < 0.1:
+        raise AssertionError(f"reloc: centre error {d} m (need < 0.1)")
+    if by_site.get("reloc_attempt", 0) < 1:
+        raise AssertionError("reloc: reloc_attempt never launched the "
+                             "hamming_top2 kernel")
+    return by_site
+
+
 def main():
     smi = phase_device()
-    phase_build()
+    phase_build(smi)
     k = phase_kernels(smi)
-    eng, engine_launches = phase_slice(smi)
+    eng, engine_launches, slice_sites = phase_slice(smi)
     phase_live_call(eng, engine_launches)
+    del eng
+    eng, poses_gt, scene, rng, loop_sites = phase_loop(smi)
+    res = phase_live_loop_call(eng)
+    phase_warm_loop_layers(eng, res, smi)
+    reloc_sites = phase_reloc(eng, poses_gt, scene, rng, smi)
+    by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
+               "reloc (phase 8)": reloc_sites}
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",
         "replaces": "orbslam2_tpu/ops/pallas_hamming.py:54",
-        "launches": engine_launches, "max_abs_err": k["max_abs_err"],
+        "launches": sum(sum(v.values()) for v in by_path.values()),
+        "launches_by_path": by_path, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from orbslam2_tpu_torch.config import SlamConfig
+from orbslam2_tpu_torch.ops import matching
 from orbslam2_tpu_torch.ops.hamming import popcount32
 from orbslam2_tpu_torch.utils.index import mask_of, scatter_add, scatter_set
 
@@ -265,6 +266,51 @@ def covisibility_row(ms: MapState, kf) -> torch.Tensor:
     w = kf_share_counts(ms, points_of_kf(ms, kf))
     w = _set_row(w, kf, 0)
     return torch.where(ms.kf_valid, w, 0)
+
+
+def covisibility_rows(ms: MapState, kf_ids: torch.Tensor) -> torch.Tensor:
+    """[C, K] shared-point counts for a small batch of keyframes (per-row
+    point masks [C, P], then one [C, K, N] gather)."""
+    C, P = kf_ids.shape[0], ms.P
+    kf_ids = kf_ids.long()
+    rows_mp = ms.kf_mp[kf_ids].long()                        # [C, N]
+    rows_ok = (rows_mp >= 0) & ms.kf_kp_valid[kf_ids]
+    masks = torch.zeros((C, P + 1), dtype=torch.bool, device=rows_mp.device)
+    masks.scatter_(1, torch.where(rows_ok, rows_mp, P), True)
+    masks = masks[:, :P]
+    ok = kf_obs_ok(ms)                                       # [K, N]
+    hit = masks[:, torch.where(ok, ms.kf_mp, 0).long()] & ok[None]
+    w = torch.sum(hit.to(torch.int32), dim=-1, dtype=torch.int32)
+    w[torch.arange(C, device=w.device), kf_ids] = 0
+    return torch.where(ms.kf_valid[None, :], w, 0)
+
+
+def obs_incidence(ms: MapState) -> torch.Tensor:
+    """[K, P] bool: keyframe k observes map point p.  K·P entries: for
+    rare whole-graph work only (essential graph)."""
+    K, P = ms.K, ms.P
+    ok = kf_obs_ok(ms)
+    M = torch.zeros((K, P + 1), dtype=torch.bool, device=ok.device)
+    M.scatter_(1, torch.where(ok, ms.kf_mp, P).long(), True)
+    return M[:, :P]
+
+
+def covisibility(ms: MapState) -> torch.Tensor:
+    """[K, K] int32 shared-map-point counts (KeyFrame::UpdateConnections)
+    as one [K, P]·[P, K] product of 0/1 values: exact in FP32 with TF32
+    off (counts ≤ N < 2²⁴), which the package sets on import."""
+    Mf = obs_incidence(ms).to(torch.float32)
+    W = (Mf @ Mf.T).to(torch.int32)
+    W.fill_diagonal_(0)
+    live = ms.kf_valid
+    return torch.where(live[:, None] & live[None, :], W, 0)
+
+
+def mp_projection_query(ms: MapState) -> matching.ProjectionQuery:
+    """All live map points as a ProjectionQuery (raw scale bands)."""
+    return matching.ProjectionQuery(
+        pos_w=ms.mp_pos, normal=ms.mp_normal(), min_dist=ms.mp_min_dist,
+        max_dist=ms.mp_max_dist, desc=ms.mp_desc, valid=ms.mp_valid)
 
 
 # ------------------------------------------------------------- map points ----

@@ -167,6 +167,8 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, n_free: int,
             return _schur_solve_dense(coup, Hcc_d, inv3x3(Hpp_d), g_c, g_p,
                                       C, P, fix_first_free)
 
+        if n_iters == 0:      # a stage of length 0 (a GBA chunk's half)
+            return poses, points
         blocks, cost = linearize(poses, points)
         lam = torch.tensor(LAM0, dtype=dtype, device=dev)
         for _ in range(n_iters):

@@ -6,11 +6,18 @@ launches the hand-written Hopper kernel ``csrc/hamming_top2.cu``; on CPU
 tensors it runs :func:`hamming_top2_reference`, the plain PyTorch
 version.  There is no fallback from the card to the plain version: a
 build or launch failure raises.
+
+``hamming_top2.launches`` counts kernel launches; ``launches_by_site``
+splits that count by the caller that named itself with
+:func:`launch_site` (the paths that reach the kernel: tracking's
+TrackReferenceKeyFrame, loop closing's Sim3 matching, relocalization).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -18,6 +25,20 @@ import torch
 from orbslam2_tpu_torch.ops import hamming
 
 MAX_DIST = hamming.MAX_DIST
+
+_site = threading.local()
+
+
+@contextlib.contextmanager
+def launch_site(name: str):
+    """Attribute this thread's kernel launches inside the block to
+    ``name`` in ``hamming_top2.launches_by_site``."""
+    prev = getattr(_site, "name", None)
+    _site.name = name
+    try:
+        yield
+    finally:
+        _site.name = prev
 
 
 def hamming_top2_reference(a_desc: torch.Tensor, a_valid: torch.Tensor,
@@ -93,7 +114,16 @@ def hamming_top2(a_desc: torch.Tensor, a_valid: torch.Tensor,
         raise RuntimeError(f"hamming_top2 kernel launch failed: CUDA error "
                            f"{err}")
     hamming_top2.launches += 1
+    site = getattr(_site, "name", None) or "other"
+    by_site = hamming_top2.launches_by_site
+    by_site[site] = by_site.get(site, 0) + 1
     return best, idx, second
 
 
+def reset_launch_counts() -> None:
+    hamming_top2.launches = 0
+    hamming_top2.launches_by_site.clear()
+
+
 hamming_top2.launches = 0
+hamming_top2.launches_by_site = {}

@@ -1,15 +1,18 @@
-"""Host-side SLAM engine: frontend + tracking + local mapping.
+"""Host-side SLAM engine: frontend + tracking + local mapping + loop
+closing.
 
-Port of ``orbslam2_tpu/runtime/slam.py`` for the stereo sensor with loop
-closing off: the Tracking::Track state machine (motion model, the ×2
-widen retry, the TrackReferenceKeyFrame fallback, the keyframe decision)
-on the host, all array work in tensors on ``device``.  Keyframe and
-map-point rows are reused after culling; trajectory entries whose
-reference keyframe is culled are rebased onto its parent.
+Port of ``orbslam2_tpu/runtime/slam.py`` for the stereo sensor: the
+Tracking::Track state machine (motion model, the ×2 widen retry, the
+TrackReferenceKeyFrame fallback, the keyframe decision, relocalization
+when LOST) on the host, all array work in tensors on ``device``.  With
+loop closing on (the default) every new keyframe goes through
+``LoopCloser.on_keyframe`` and a finished background global BA is merged
+after it; ``finish_gba`` drains the last one.  Keyframe and map-point rows
+are reused after culling; trajectory entries whose reference keyframe is
+culled are rebased onto its parent.
 
 Not yet ported (each raises ``NotImplementedError`` naming the ROADMAP
-item): loop closing, RGB-D and mono tracking, localization mode and
-relocalization.
+item): RGB-D and mono tracking, localization mode.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import torch
 from orbslam2_tpu_torch.config import MONOCULAR, STEREO, SlamConfig
 from orbslam2_tpu_torch.models import frame as frame_mod
 from orbslam2_tpu_torch.models import map_state as M
+from orbslam2_tpu_torch.models import vocabulary as voc_mod
 from orbslam2_tpu_torch.runtime import local_mapping, tracking
+from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
 
 
 def _not_ported(what: str, item: str):
@@ -47,20 +52,22 @@ class SlamEngine:
     """Single-process stereo engine on one torch device."""
 
     def __init__(self, cfg: SlamConfig, enable_loop_closing: bool = True,
-                 device=None):
+                 device=None, vocabulary=None):
         if cfg.sensor != STEREO:
             raise _not_ported("RGB-D and mono tracking",
                               "the RGB-D/mono frontends and ops/initializer")
-        if enable_loop_closing:
-            raise _not_ported("loop closing", "ops/bow.py, "
-                              "models/keyframe_db.py, runtime/loop_closing.py;"
-                              " pass enable_loop_closing=False")
         self.cfg = cfg
         self.device = torch.device(device if device is not None else "cpu")
         self.frontend = frame_mod.make_frontend_stereo(cfg)
         self.fns = tracking.make_tracking_fns(cfg)
         self.f_mapping_step = local_mapping.make_mapping_step(cfg)
         self.mapping_fns = local_mapping.MappingFns(cfg)
+        self.loop_closer: Optional[LoopCloser] = None
+        if enable_loop_closing:
+            voc = vocabulary if vocabulary is not None else \
+                voc_mod.default_vocabulary(k=cfg.capacity.vocab_k,
+                                           levels=cfg.capacity.vocab_levels)
+            self.loop_closer = LoopCloser(cfg, voc, self.device)
 
         self.ms = M.empty_map(cfg, device=self.device)
         self.state = tracking.NO_IMAGES_YET
@@ -120,11 +127,7 @@ class SlamEngine:
             self.frame_id += 1
             return np.asarray(self.last_Tcw) if ok else None
         if self.state == tracking.LOST:
-            # relocalization needs the keyframe database of loop closing;
-            # without it the frame is recorded lost, as in the JAX engine
-            self._record_traj(timestamp, None)
-            self.frame_id += 1
-            return None
+            return self._handle_lost(self.frontend(*pair), timestamp)
 
         t = self.cfg.tracking
         Tcw_pred = self._t(self._predict_pose())
@@ -305,6 +308,9 @@ class SlamEngine:
                 e.ref_kf = p
         if self.ref_kf in remap:
             self.ref_kf = remap[self.ref_kf][0]
+        if self.loop_closer is not None:
+            for v in victims:
+                self.loop_closer.db = self.loop_closer.db.erase(v)
         self._free_kf_slots |= vic
 
     def _create_keyframe(self, fd, res, timestamp: float) -> None:
@@ -317,6 +323,18 @@ class SlamEngine:
         # new points take part in tracking at once
         self.last_assoc = self.ms.kf_mp[kf_slot]
         self.last_inlier = torch.ones_like(self.last_inlier)
+
+        # loop closing (LoopClosing::Run per keyframe), then a finished
+        # background GBA is merged (LoopClosing.cc:715-775)
+        if self.loop_closer is not None:
+            self.ms, closed = self.loop_closer.on_keyframe(
+                self.ms, kf_slot, self.kf_ordinal)
+            self.ms, merged = self.loop_closer.gba.poll_and_merge(self.ms)
+            if closed or merged:
+                self.stats["loops_closed"] += int(closed)
+                # poses moved wholesale: rebase the motion model
+                self.velocity = None
+                self.last_Tcw = self.ms.kf_pose[kf_slot].cpu().numpy()
 
     def _auto_reset(self) -> None:
         """Tracking::Reset in place: clear map and trajectory."""
@@ -336,7 +354,41 @@ class SlamEngine:
         self._free_kf_slots = set(range(cfg.capacity.max_keyframes))
         self._culled_remap = {}
         self.trajectory = []
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
         self.stats["resets"] = self.stats.get("resets", 0) + 1
+
+    def _handle_lost(self, fd, timestamp: float) -> Optional[np.ndarray]:
+        """Relocalization (Tracking.cc:434-449); without loop closing the
+        frame is recorded lost."""
+        self.frame_id += 1
+        if self.loop_closer is None:
+            self._record_traj(timestamp, None)
+            return None
+        Tcw, assoc = self.loop_closer.relocalize(self.ms, fd)
+        if Tcw is None:
+            self._record_traj(timestamp, None)
+            return None
+        self.stats["reloc"] += 1
+        self.state = tracking.OK
+        self.velocity = None
+        self.last_Tcw = Tcw.astype(np.float32)
+        self.last_assoc = assoc
+        self.last_inlier = torch.ones_like(assoc >= 0)
+        self.last_fd = fd
+        self._record_traj(timestamp, Tcw)
+        return Tcw
+
+    def finish_gba(self) -> bool:
+        """Wait for a background global BA and merge its result (the
+        shutdown handshake, System.cc:169-183)."""
+        if self.loop_closer is None:
+            return False
+        self.loop_closer.gba.wait()
+        self.ms, merged = self.loop_closer.gba.poll_and_merge(self.ms)
+        if merged:
+            self.velocity = None
+        return merged
 
     def _record_traj(self, timestamp: float, Tcw: Optional[np.ndarray]):
         if Tcw is None:

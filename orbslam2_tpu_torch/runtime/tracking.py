@@ -23,6 +23,7 @@ from orbslam2_tpu_torch.config import MONOCULAR, SlamConfig
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.models.frame import FrameData
 from orbslam2_tpu_torch.ops import matching, pose_opt
+from orbslam2_tpu_torch.ops.hamming_top2 import launch_site
 from orbslam2_tpu_torch.utils import camera as cam_mod
 from orbslam2_tpu_torch.utils import lie
 from orbslam2_tpu_torch.utils.index import mask_of, scatter_set, topk
@@ -257,10 +258,12 @@ def make_tracking_fns(cfg: SlamConfig) -> TrackingFns:
         dev = fd.xy.device
         kf_mp = ms.kf_mp[ref_kf]
         kvalid = ms.kf_kp_valid[ref_kf] & (kf_mp >= 0)
-        m, _d = matching.match_descriptors(
-            fd.desc, fd.valid, ms.kf_desc[ref_kf], kvalid,
-            nn_ratio=tcfg.reference_keyframe_nn_ratio, th=matching.TH_LOW,
-            angle_a=fd.angle, angle_b=ms.kf_angle[ref_kf])
+        with launch_site("track_ref_kf"):
+            m, _d = matching.match_descriptors(
+                fd.desc, fd.valid, ms.kf_desc[ref_kf], kvalid,
+                nn_ratio=tcfg.reference_keyframe_nn_ratio,
+                th=matching.TH_LOW, angle_a=fd.angle,
+                angle_b=ms.kf_angle[ref_kf])
         assoc = torch.where(m >= 0, kf_mp[torch.where(m >= 0, m, 0)],
                             M.NO_MP).to(torch.int32)
         obs = _pose_obs_from_assoc(ms, fd, assoc, inv_sigma2(dev))

@@ -1,8 +1,9 @@
-"""SO(3) / SE(3) Lie-group operations on torch tensors.
+"""SO(3) / SE(3) / Sim(3) Lie-group operations on torch tensors.
 
-Port of ``orbslam2_tpu/utils/lie.py`` (SE3 part; Sim3 and quaternions wait
-for the loop-closing slice).  Poses are ``[..., 4, 4]`` homogeneous
-matrices, twists ``[..., 6]`` = [ω, υ], all with arbitrary leading batch
+Port of ``orbslam2_tpu/utils/lie.py`` (the quaternion part waits for
+serialization).  Poses are ``[..., 4, 4]`` homogeneous matrices, twists
+``[..., 6]`` = [ω, υ], Sim3 elements ``(s, R, t)`` with x ↦ s·R·x + t and
+tangents ``[..., 7]`` = [ω, υ, σ], all with arbitrary leading batch
 dimensions.
 """
 
@@ -158,3 +159,97 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     R, t = mat_to_rt(T)
     return torch.sum(pts[..., None, :] * R, dim=-1) + t
 
+
+# ----------------------------------------------------------------- Sim(3) ----
+# (s, R, t): x ↦ s·R·x + t, as g2o::Sim3.
+
+def sim3_apply(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+               pts: torch.Tensor) -> torch.Tensor:
+    """([...], [..., 3, 3], [..., 3]) on [..., N, 3]."""
+    return (s[..., None, None] * (pts @ R.transpose(-1, -2))
+            + t[..., None, :])
+
+
+def sim3_inv(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return s_inv, Rt, -(s_inv[..., None] * (Rt @ t[..., None])[..., 0])
+
+
+def sim3_mul(s1, R1, t1, s2, R2, t2):
+    """(s1,R1,t1) ∘ (s2,R2,t2): first apply 2, then 1."""
+    return (s1 * s2, R1 @ R2,
+            s1[..., None] * (R1 @ t2[..., None])[..., 0] + t1)
+
+
+def _sim3_coeffs(w: torch.Tensor, sigma: torch.Tensor):
+    """(s, A, B, C) of the W matrix A·I + B·[ω]× + C·[ω]×² with the σ→0
+    and θ→0 limits (Strasdat's Sim3 exp)."""
+    s = torch.exp(sigma)
+    theta = _safe_norm(w)
+    eps = 1e-5
+    sig_small = torch.abs(sigma) < eps
+    th_small = theta < eps
+    sig_s = torch.where(sig_small, torch.ones_like(sigma), sigma)
+    th_s = torch.where(th_small, torch.ones_like(theta), theta)
+    A = torch.where(sig_small, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                    (s - 1.0) / sig_s)
+    denom = sig_s * sig_s + th_s * th_s
+    sin_t, cos_t = torch.sin(th_s), torch.cos(th_s)
+    B_gen = (sig_s * (s * sin_t) + th_s * (1.0 - s * cos_t)) / (th_s * denom)
+    C_gen = (A - ((s * cos_t - 1.0) * sig_s + s * sin_t * th_s) / denom) \
+        / (th_s * th_s)
+    B_sig0 = _cosc(theta)
+    C_sig0 = torch.where(th_small, torch.full_like(theta, 1.0 / 6.0),
+                         (th_s - torch.sin(th_s)) / (th_s ** 3))
+    B_th0 = torch.where(sig_small, 0.5 + sigma / 6.0,
+                        ((sig_s - 1.0) * s + 1.0) / (sig_s * sig_s))
+    C_th0 = torch.where(
+        sig_small, 1.0 / 6.0 + sigma / 24.0,
+        (s * (0.5 * sig_s * sig_s - sig_s + 1.0) - 1.0) / (sig_s ** 3))
+    B = torch.where(th_small, B_th0, torch.where(sig_small, B_sig0, B_gen))
+    C = torch.where(th_small, C_th0, torch.where(sig_small, C_sig0, C_gen))
+    return s, A, B, C
+
+
+def _sim3_wmat(xi: torch.Tensor) -> torch.Tensor:
+    """The W matrix of sim3_exp (t = W·υ) for tangent ``xi`` [..., 7]."""
+    w = xi[..., :3]
+    _, A, B, C = _sim3_coeffs(w, xi[..., 6])
+    W = hat(w)
+    return (A[..., None, None] * _eye3(W) + B[..., None, None] * W
+            + C[..., None, None] * (W @ W))
+
+
+def sim3_exp(xi: torch.Tensor):
+    """[..., 7] = [ω, υ, σ] → (s, R, t)."""
+    w, v = xi[..., :3], xi[..., 3:6]
+    s = torch.exp(xi[..., 6])
+    t = (_sim3_wmat(xi) @ v[..., None])[..., 0]
+    return s, so3_exp(w), t
+
+
+def sim3_log(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor
+             ) -> torch.Tensor:
+    """(s, R, t) → [..., 7]: inverts sim3_exp by solving W·υ = t."""
+    sigma = torch.log(s)
+    w = so3_log(R)
+    Wmat = _sim3_wmat(torch.cat([w, torch.zeros_like(w), sigma[..., None]],
+                                dim=-1))
+    # solve_ex: no error check, so no device→host read (the pose graph
+    # calls this inside its fixed-length loops)
+    v = torch.linalg.solve_ex(Wmat, t[..., None])[0][..., 0]
+    return torch.cat([w, v, sigma[..., None]], dim=-1)
+
+
+def sim3_to_mat(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor
+                ) -> torch.Tensor:
+    """(s, R, t) → [..., 4, 4] with sR in the upper block."""
+    return rt_to_mat(s[..., None, None] * R, t)
+
+
+def mat_to_sim3(T: torch.Tensor):
+    sR = T[..., :3, :3]
+    s = torch.exp(torch.log(torch.clamp(torch.linalg.det(sR), min=1e-30))
+                  / 3.0)
+    return s, sR / s[..., None, None], T[..., :3, 3]

@@ -64,3 +64,51 @@ def test_wrapper_rejects_bad_inputs():
         tk.hamming_top2(a[:, :4].contiguous(), av, b, bv)
     with pytest.raises(ValueError):
         tk.hamming_top2(a, av, b.cpu(), bv)
+
+
+def test_match_for_sim3_launches_the_kernel_and_equals_plain():
+    """Loop closing's KF↔KF matching on a map the port's engine built on
+    the card: one kernel launch attributed to match_for_sim3, and the same
+    matches, inlier mask and Sim3 as the plain version with the same
+    generator state."""
+    from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                           OrbConfig, STEREO, SlamConfig)
+    from orbslam2_tpu_torch.runtime.slam import SlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0,
+                       width=640, height=480, fps=10.0, th_depth=60.0)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=600),
+                     capacity=CapacityConfig(max_keyframes=16,
+                                             max_map_points=4096,
+                                             local_ba_keyframes=8,
+                                             local_ba_points=1024),
+                     sensor=STEREO)
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    eng = SlamEngine(cfg, device="cuda")
+    for i, T in enumerate(synthetic.straight_trajectory(10, step=0.25)):
+        eng.track_stereo(*synthetic.render_world_stereo(world, cam, T, rng,
+                                                        1.0), 0.1 * i)
+    live = torch.nonzero(eng.ms.kf_valid).flatten().tolist()
+    assert len(live) >= 2
+    lc = eng.loop_closer
+    kf1, kf2 = live[-1], live[-2]
+    state = lc.generator.get_state()
+    before = dict(tk.hamming_top2.launches_by_site)
+    res, m = lc.fns.match_for_sim3(eng.ms, kf1, kf2, lc.generator)
+    torch.cuda.synchronize()
+    after = tk.hamming_top2.launches_by_site
+    assert after.get("match_for_sim3", 0) == \
+        before.get("match_for_sim3", 0) + 1
+    g = torch.Generator(device="cuda")
+    g.set_state(state)
+    matching.hamming_top2 = tk.hamming_top2_reference
+    try:
+        res_p, m_p = lc.fns.match_for_sim3(eng.ms, kf1, kf2, g)
+    finally:
+        matching.hamming_top2 = tk.hamming_top2
+    assert torch.equal(m, m_p) and int((m >= 0).sum()) >= 20
+    assert torch.equal(res.inliers, res_p.inliers)
+    assert torch.equal(res.R12, res_p.R12) and torch.equal(res.t12,
+                                                           res_p.t12)

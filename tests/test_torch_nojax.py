@@ -1,8 +1,10 @@
 """The port starts where there is no jax: the GPU host has none.
 
 In a subprocess where ``import jax`` fails, import the port and
-``chip_smoke``, run one stereo frame through ``SlamEngine.track_stereo``
-on the CPU, and check that nothing of jax or ``orbslam2_tpu`` was loaded.
+``chip_smoke``, run a few stereo frames through ``SlamEngine.track_stereo``
+on the CPU with loop closing on (keyframe DB registration, detection,
+then relocalization from LOST), and check that nothing of jax or
+``orbslam2_tpu`` was loaded.
 Also: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -36,13 +38,21 @@ cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=200),
                                          local_ba_keyframes=2,
                                          local_ba_points=256),
                  sensor=STEREO)
+from orbslam2_tpu_torch.runtime import tracking
 rng = np.random.default_rng(0)
 world = synthetic.make_world(rng)
-T = synthetic.straight_trajectory(1)[0]
-eng = SlamEngine(cfg, enable_loop_closing=False, device="cpu")
-Tcw = eng.track_stereo(*synthetic.render_world_stereo(world, cam, T, rng,
-                                                      1.0), 0.0)
-assert Tcw is not None and eng.state == 2, eng.state
+poses = synthetic.straight_trajectory(8, step=0.3)
+eng = SlamEngine(cfg, device="cpu")         # loop closing on by default
+assert eng.loop_closer is not None
+for i, T in enumerate(poses):
+    Tcw = eng.track_stereo(*synthetic.render_world_stereo(world, cam, T, rng,
+                                                          1.0), 0.1 * i)
+    assert Tcw is not None and eng.state == 2, (i, eng.state)
+assert bool(eng.loop_closer.db.valid.any()), eng.stats   # keyframes in DB
+eng.state = tracking.LOST                   # relocalization runs too
+eng.track_stereo(*synthetic.render_world_stereo(world, cam, poses[-1], rng,
+                                                1.0), 9.0)
+eng.finish_gba()
 bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
              or m.startswith("orbslam2_tpu.")
              or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
