@@ -6,9 +6,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   1. device    — card name and power limit, torch and CUDA versions;
   2. build     — compile every hand-written kernel from the checkout;
   3. kernels   — each kernel against its plain PyTorch version on the
-                 card, bit-exact, at the main path's shapes and edge
-                 cases, and their median times from CUDA events;
-  4. slice     — SlamEngine(STEREO, loop closing off) over 40 frames of
+                 card, bit-exact, at the main path's shapes, long banks,
+                 ragged edges, no query rows and ties;
+  4. slice     — SlamEngine(STEREO, loop closing off; no device given,
+                 so the card by default) over 40 frames of
                  the bench scene at 640×480, 1000 features, 128 keyframes,
                  16k map points, with a one-frame camera shake that makes
                  the engine take TrackReferenceKeyFrame (the path that
@@ -27,11 +28,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   7. live loop — match_for_sim3 on the closing (current, loop) keyframe
                  pair of the live map, held against the same call with the
                  plain version and the same generator state; then the
-                 loop-correction layers and one GBA chunk timed warm on
-                 that pair (phase 6 timed their first calls);
+                 match_for_sim3, the loop-correction layers and one GBA
+                 chunk timed warm on that pair (phase 6 timed their first
+                 calls);
   8. reloc     — the phase-6 engine set LOST and shown a re-rendered early
                  frame must relocalize within 0.1 m, launching hamming_top2
-                 from reloc_attempt.
+                 from reloc_attempt; that reloc_attempt call is then run
+                 again with the kernel and with the plain version, the same
+                 generator state, and must give the same matches and pose;
+  9. times     — each kernel at the main path's shape (1024×1024): the
+                 wrapper's host µs per call, the wrapper-inclusive and the
+                 plain version's ms per call (CUDA events; the kernels
+                 line's ``ms`` and ``plain_ms``), then its device µs per
+                 launch (torch.profiler, ``device_ms``; run last so that no
+                 profiler session precedes a timed phase) against its
+                 bound.
 Every time printed carries the card's name and power limit.  The line
 before the last is the kernels' JSON record (launches per path); the last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -48,6 +59,10 @@ import torch
 
 # tolerance of every kernel-vs-plain comparison: integer outputs, exact
 MAX_ABS_ERR = 0
+# H100 SXM: HBM rate; __popc issue rate per SM per clock (compute
+# capability 9.0, CUDA C++ Programming Guide's throughput table)
+HBM_BYTES_PER_S = 3.35e12
+POPC_PER_SM_CLOCK = 16
 
 N_FRAMES = 40
 # phase 6: tests/test_loop_closing.py's orbit
@@ -100,6 +115,20 @@ def _cuda_ms(fn, reps=200, warmup=10):
     return a.elapsed_time(b) / reps
 
 
+def hamming_top2_bound(av, bv, sm_clock_mhz):
+    """Least time on this card for hamming_top2 on these inputs: 8 __popc
+    for each pair of valid descriptors (invalid pairs read 256 with no
+    work) against the bytes read once and written once."""
+    A, B = av.shape[0], bv.shape[0]
+    ops = 8 * int(av.sum()) * int(bv.sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_s = ops / (POPC_PER_SM_CLOCK * sms * sm_clock_mhz * 1e6)
+    nbytes = 32 * A + 32 * B + A + B + 3 * 4 * A
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes", ops, nbytes)
+
+
 def phase_kernels(smi):
     from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
                                                      hamming_top2_reference)
@@ -116,7 +145,10 @@ def phase_kernels(smi):
         return torch.from_numpy(rng.random(n) < p).to(dev)
 
     cases = {}
-    for A, B in [(1024, 1024), (600, 512), (256, 300), (1024, 16384)]:
+    # the main path's shape, others, long banks (64 and 1024 rows against
+    # 16384 columns, 32 chunks), ragged edges and no query rows
+    for A, B in [(1024, 1024), (600, 512), (256, 300), (1024, 16384),
+                 (64, 16384), (1, 1), (1024, 1), (33, 1025), (0, 16)]:
         cases[f"{A}x{B}"] = (words(A), mask(A), words(B), mask(B))
     a, av, b, bv = words(64), mask(64), words(700), mask(700)
     av[:3] = False
@@ -134,26 +166,67 @@ def phase_kernels(smi):
         tie_bank[torch.from_numpy(rng.permutation(120)[:50]).to(dev)
                  ].contiguous(),
         mask(50, 1.0), tie_bank, mask(120, 1.0))
+    # the same across the bank's chunks: 4096 descriptors three times
+    base = words(4096)
+    tie_bank = torch.cat([base, base, base])
+    cases["duplicated descriptors, long bank"] = (
+        tie_bank[torch.from_numpy(rng.permutation(3 * 4096)[:64]).to(dev)
+                 ].contiguous(),
+        mask(64, 1.0), tie_bank, mask(3 * 4096, 1.0))
 
     max_err = 0
     for name, (a, av, b, bv) in cases.items():
         got = hamming_top2(a, av, b, bv)
         ref = hamming_top2_reference(a, av, b, bv)
         torch.cuda.synchronize()
-        err = max(int(torch.max(torch.abs(g.long() - r.long())))
-                  for g, r in zip(got, ref))
+        if any(g.shape != r.shape for g, r in zip(got, ref)):
+            raise AssertionError(f"hamming_top2 vs plain at {name}: shapes "
+                                 f"{[g.shape for g in got]} vs "
+                                 f"{[r.shape for r in ref]}")
+        err = max((int(torch.max(torch.abs(g.long() - r.long())))
+                   for g, r in zip(got, ref) if g.numel()), default=0)
         max_err = max(max_err, err)
         if err > MAX_ABS_ERR:
             raise AssertionError(f"hamming_top2 vs plain at {name}: max "
                                  f"|diff| {err}")
         print(f"[kernels] hamming_top2 {name}: bit-exact vs plain "
               f"(A={a.shape[0]}, B={b.shape[0]})", flush=True)
-    a, av, b, bv = cases["1024x1024"]
-    ms = _cuda_ms(lambda: hamming_top2(a, av, b, bv))
+    return max_err, cases["1024x1024"]
+
+
+def phase_kernel_times(smi, main_inputs):
+    from orbslam2_tpu_torch.kernels.bench_hamming_top2 import (device_us,
+                                                               host_us)
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     hamming_top2_reference)
+
+    a, av, b, bv = main_inputs
+    wrapper_host_us = host_us(lambda: hamming_top2(a, av, b, bv))
+    call_ms = _cuda_ms(lambda: hamming_top2(a, av, b, bv))
     plain_ms = _cuda_ms(lambda: hamming_top2_reference(a, av, b, bv))
-    print(f"[kernels] hamming_top2 1024x1024 per call: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms ({smi})", flush=True)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    dev_us, recorded = device_us(lambda: hamming_top2(a, av, b, bv), n=200)
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    bound_ms, bound_by, ops, nbytes = hamming_top2_bound(av, bv, clock)
+    share = bound_ms / (dev_us / 1e3)
+    print(f"[times] hamming_top2 1024x1024: device {dev_us:.3f} us per "
+          f"launch (torch.profiler, mean of {recorded} recorded of 200), "
+          f"wrapper-inclusive "
+          f"{1e3 * call_ms:.3f} us per call (CUDA events), wrapper host "
+          f"{wrapper_host_us:.2f} us per call, plain {plain_ms:.4f} ms; "
+          f"bound {1e3 * bound_ms:.3f} us by {bound_by} ({ops} __popc at "
+          f"{POPC_PER_SM_CLOCK}/clock/SM, SM clock {clock:.0f} MHz; "
+          f"{nbytes} bytes), {100 * share:.1f}% of the bound ({smi})",
+          flush=True)
+    # ms: per call, wrapper included (CUDA events), as in every earlier
+    # kernels line; device_ms: the kernel's own time (torch.profiler)
+    return {"ms": call_ms, "device_ms": dev_us / 1e3,
+            "device_launches_recorded": recorded,
+            "host_us": wrapper_host_us, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": share,
+            "sm_clock_mhz": clock}
 
 
 def bench_config():
@@ -213,7 +286,10 @@ def phase_slice(smi):
     poses_gt = shaken_trajectory()
     frames = [synthetic.render_world_stereo(world, cfg.camera, T, rng,
                                             noise=1.0) for T in poses_gt]
-    eng = SlamEngine(cfg, enable_loop_closing=False, device="cuda")
+    eng = SlamEngine(cfg, enable_loop_closing=False)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"slice: SlamEngine chose {eng.device}, not "
+                             f"the card")
     # per-layer wall ms, each call ended by a synchronize
     layers = {"frontend": [], "track_body": [], "track_ref_kf": [],
               "track (fallback re-run)": [], "mapping_step": []}
@@ -339,7 +415,7 @@ def phase_loop(smi):
     poses_gt = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS)
     frames = [synthetic.render_stereo(scene, cfg.camera, T, rng, 1.0)
               for T in poses_gt]
-    eng = SlamEngine(cfg, device="cuda")            # loop closing on
+    eng = SlamEngine(cfg)            # loop closing on, the card
     lc = eng.loop_closer
     layers = {name: [] for name in LOOP_LAYERS + ("gba_chunk", "gba_merge")}
     lc.fns = lc.fns._replace(**{name: _timed(getattr(lc.fns, name),
@@ -448,7 +524,10 @@ def phase_warm_loop_layers(eng, res, smi, reps=3):
     kf, cand = lc.last_loop
     ms = eng.ms
     z8 = torch.zeros(8, dtype=torch.int32, device=eng.device)
+    g = torch.Generator(device=eng.device)
+    g.set_state(lc.generator.get_state())
     calls = {
+        "match_for_sim3": lambda: f.match_for_sim3(ms, kf, cand, g),
         "refine_sim3": lambda: f.refine_sim3(ms, kf, cand, res.s12, res.R12,
                                              res.t12),
         "recount_matches": lambda: f.recount_matches(
@@ -482,10 +561,22 @@ def phase_reloc(eng, poses_gt, scene, rng, smi):
     eng.state = tracking.LOST
     eng.velocity = None
     n_reloc = eng.stats["reloc"]
+    lc = eng.loop_closer
+    attempt = lc.fns.reloc_attempt
+    calls = []                         # (arguments, generator state)
+
+    def recorded(*args):
+        calls.append((args, args[-1].get_state()))
+        return attempt(*args)
+
+    lc.fns = lc.fns._replace(reloc_attempt=recorded)
     reset_launch_counts()              # the relocalization path's count
     t0 = time.perf_counter()
-    Tcw = eng.track_stereo(left, right, 99.0)
-    torch.cuda.synchronize()
+    try:
+        Tcw = eng.track_stereo(left, right, 99.0)
+        torch.cuda.synchronize()
+    finally:
+        lc.fns = lc.fns._replace(reloc_attempt=attempt)
     dt = 1e3 * (time.perf_counter() - t0)
     by_site = dict(hamming_top2.launches_by_site)
     if Tcw is None or eng.stats["reloc"] != n_reloc + 1:
@@ -501,13 +592,55 @@ def phase_reloc(eng, poses_gt, scene, rng, smi):
     if by_site.get("reloc_attempt", 0) < 1:
         raise AssertionError("reloc: reloc_attempt never launched the "
                              "hamming_top2 kernel")
+    live_reloc_call(eng, attempt, *calls[-1])
     return by_site
+
+
+def live_reloc_call(eng, attempt, args, state):
+    """The reloc_attempt call that relocalized, again on the live map: its
+    descriptor matches and its result with the kernel and with the plain
+    version, each from the generator state that call started from."""
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.ops import matching
+
+    match = matching.match_descriptors
+
+    def run(top2):
+        seen = []
+
+        def recorded(*a, **k):
+            out = match(*a, **k)
+            seen.append(out[0])
+            return out
+
+        g = torch.Generator(device=eng.device)
+        g.set_state(state)
+        matching.hamming_top2, matching.match_descriptors = top2, recorded
+        try:
+            Tcw, n, assoc = attempt(*args[:-1], g)
+            torch.cuda.synchronize()
+        finally:
+            matching.hamming_top2 = ht2.hamming_top2
+            matching.match_descriptors = match
+        return seen, Tcw, int(n), assoc
+
+    m, Tcw, n, assoc = run(ht2.hamming_top2)
+    m_p, Tcw_p, n_p, assoc_p = run(ht2.hamming_top2_reference)
+    same_m = len(m) == len(m_p) == 1 and torch.equal(m[0], m_p[0])
+    same = same_m and n == n_p and torch.equal(assoc, assoc_p) and \
+        torch.equal(Tcw, Tcw_p)
+    print(f"[live-reloc] reloc_attempt against KF {args[-2]} on the live "
+          f"map: {int((m[0] >= 0).sum())} matches, {n} inliers; matches "
+          f"equal to the plain version: {same_m}, inliers, associations and "
+          f"pose equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("reloc_attempt: kernel and plain differ")
 
 
 def main():
     smi = phase_device()
     phase_build(smi)
-    k = phase_kernels(smi)
+    max_err, main_inputs = phase_kernels(smi)
     eng, engine_launches, slice_sites = phase_slice(smi)
     phase_live_call(eng, engine_launches)
     del eng
@@ -515,6 +648,7 @@ def main():
     res = phase_live_loop_call(eng)
     phase_warm_loop_layers(eng, res, smi)
     reloc_sites = phase_reloc(eng, poses_gt, scene, rng, smi)
+    k = phase_kernel_times(smi, main_inputs)
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
                "reloc (phase 8)": reloc_sites}
     print(json.dumps({"kernels": [{
@@ -522,8 +656,8 @@ def main():
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",
         "replaces": "orbslam2_tpu/ops/pallas_hamming.py:54",
         "launches": sum(sum(v.values()) for v in by_path.values()),
-        "launches_by_path": by_path, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+        "launches_by_path": by_path, "max_abs_err": max_err, **k,
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -57,16 +57,36 @@ def hamming_top2_reference(a_desc: torch.Tensor, a_valid: torch.Tensor,
     return best, idx.to(torch.int32), second
 
 
-def _lib():
-    from orbslam2_tpu_torch.kernels import build
+def merge_top2(x: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+               y: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's merge rule in plain PyTorch: two partial (best, first
+    best column, second excluding it) over disjoint column sets → the same
+    over their union.  The winner has the smaller best, on a tie the
+    smaller column; second = min(winner's second, loser's best), exact
+    because the loser's best column is not the winner's."""
+    xb, xi, xs = x
+    yb, yi, ys = y
+    x_wins = (xb < yb) | ((xb == yb) & (xi < yi))
+    return (torch.where(x_wins, xb, yb), torch.where(x_wins, xi, yi),
+            torch.minimum(torch.where(x_wins, xs, ys),
+                          torch.where(x_wins, yb, xb)))
 
-    lib = build.load("hamming_top2")
-    fn = lib.hamming_top2_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+
+_kernel = None                 # the ctypes launch function
+
+
+def _kernel_fn():
+    global _kernel
+    if _kernel is None:
+        from orbslam2_tpu_torch.kernels import build
+
+        fn = build.load("hamming_top2").hamming_top2_launch
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, p, p]
+        fn.restype = i
+        _kernel = fn
+    return _kernel
 
 
 def _check(name, t, dtype, shape):
@@ -81,16 +101,9 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"hamming_top2: {name} is not contiguous")
 
 
-def hamming_top2(a_desc: torch.Tensor, a_valid: torch.Tensor,
-                 b_desc: torch.Tensor, b_valid: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """[A, 8] × [B, 8] int32 words → (best, best_idx, second) [A] int32.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``hamming_top2.launches`` counts those launches)."""
-    if all(t.device.type == "cpu" for t in (a_desc, a_valid, b_desc,
-                                             b_valid)):
-        return hamming_top2_reference(a_desc, a_valid, b_desc, b_valid)
+def _check_inputs(a_desc, a_valid, b_desc, b_valid):
+    """Device, type, shape, contiguity and alignment of the kernel's
+    inputs → (A, B, device); raises on anything the kernel does not take."""
     A, B = a_desc.shape[0], b_desc.shape[0]
     if B < 1:
         raise ValueError("hamming_top2: the bank B is empty")
@@ -101,15 +114,33 @@ def hamming_top2(a_desc: torch.Tensor, a_valid: torch.Tensor,
     dev = a_desc.device
     if any(t.device != dev for t in (a_valid, b_desc, b_valid)):
         raise ValueError("hamming_top2: inputs are on different devices")
-    fn = _lib()
-    best = torch.empty(A, dtype=torch.int32, device=dev)
-    idx = torch.empty(A, dtype=torch.int32, device=dev)
-    second = torch.empty(A, dtype=torch.int32, device=dev)
+    if a_desc.data_ptr() % 16 or b_desc.data_ptr() % 16:
+        raise ValueError("hamming_top2: descriptors must be 16-byte aligned")
+    return A, B, dev
+
+
+def hamming_top2(a_desc: torch.Tensor, a_valid: torch.Tensor,
+                 b_desc: torch.Tensor, b_valid: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[A, 8] × [B, 8] int32 words → (best, best_idx, second) [A] int32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``hamming_top2.launches`` counts those launches)."""
+    if all(t.device.type == "cpu" for t in (a_desc, a_valid, b_desc,
+                                             b_valid)):
+        return hamming_top2_reference(a_desc, a_valid, b_desc, b_valid)
+    A, B, dev = _check_inputs(a_desc, a_valid, b_desc, b_valid)
+    out = a_desc.new_empty((3, A))                      # int32, on dev
+    if A == 0:
+        return out.unbind(0)
+    launch = _kernel_fn()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a_desc.data_ptr(), a_valid.data_ptr(), b_desc.data_ptr(),
-                 b_valid.data_ptr(), A, B, best.data_ptr(), idx.data_ptr(),
-                 second.data_ptr(), stream)
+        err = launch(a_desc.data_ptr(), a_valid.data_ptr(),
+                     b_desc.data_ptr(), b_valid.data_ptr(), A, B,
+                     out.data_ptr(),
+                     # the current stream's handle without building a
+                     # torch.cuda.Stream (6 us of host time on the H100)
+                     torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"hamming_top2 kernel launch failed: CUDA error "
                            f"{err}")
@@ -117,7 +148,7 @@ def hamming_top2(a_desc: torch.Tensor, a_valid: torch.Tensor,
     site = getattr(_site, "name", None) or "other"
     by_site = hamming_top2.launches_by_site
     by_site[site] = by_site.get(site, 0) + 1
-    return best, idx, second
+    return out.unbind(0)
 
 
 def reset_launch_counts() -> None:

@@ -38,6 +38,7 @@ from orbslam2_tpu_torch.models.vocabulary import Vocabulary
 from orbslam2_tpu_torch.ops import (bow, matching, pnp, pose_graph, pose_opt,
                                     sim3opt, sim3solver)
 from orbslam2_tpu_torch.ops.hamming_top2 import launch_site
+from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.runtime.gba import GbaManager
 from orbslam2_tpu_torch.runtime.local_mapping import (MIN_COVIS_WEIGHT,
                                                       fuse_points_into_kf)
@@ -354,7 +355,7 @@ class LoopCloser:
 
     def __init__(self, cfg: SlamConfig, voc: Vocabulary, device=None):
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = device_mod.resolve(device)
         self.voc = voc.to(self.device)
         self.fns = make_loop_fns(cfg, self.voc)
         self.gba = GbaManager(cfg)

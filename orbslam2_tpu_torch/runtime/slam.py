@@ -28,6 +28,7 @@ from orbslam2_tpu_torch.config import MONOCULAR, STEREO, SlamConfig
 from orbslam2_tpu_torch.models import frame as frame_mod
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.models import vocabulary as voc_mod
+from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.runtime import local_mapping, tracking
 from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
 
@@ -49,7 +50,8 @@ class TrajectoryEntry:
 
 
 class SlamEngine:
-    """Single-process stereo engine on one torch device."""
+    """Single-process stereo engine on one torch device: the CUDA card
+    unless ``device`` says otherwise (``device="cpu"`` for the CPU)."""
 
     def __init__(self, cfg: SlamConfig, enable_loop_closing: bool = True,
                  device=None, vocabulary=None):
@@ -57,7 +59,7 @@ class SlamEngine:
             raise _not_ported("RGB-D and mono tracking",
                               "the RGB-D/mono frontends and ops/initializer")
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = device_mod.resolve(device)
         self.frontend = frame_mod.make_frontend_stereo(cfg)
         self.fns = tracking.make_tracking_fns(cfg)
         self.f_mapping_step = local_mapping.make_mapping_step(cfg)

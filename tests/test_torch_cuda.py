@@ -35,14 +35,41 @@ def _inputs(A, B, seed=0):
 
 
 @pytest.mark.parametrize("A,B", [(1024, 1024), (600, 512), (256, 300),
-                                 (1024, 16384), (7, 1)])
+                                 (1024, 16384), (64, 16384), (7, 1), (1, 1),
+                                 (1024, 1), (33, 1025), (0, 16)])
 def test_kernel_matches_plain(A, B):
+    """The main path's shapes, long banks (64 and 1024 rows against 16384
+    columns, 32 chunks), ragged edges (one row, one column, 33 × 1025)
+    and no query rows (no launch, empty outputs)."""
     args = _inputs(A, B)
+    before = tk.hamming_top2.launches
+    got = tk.hamming_top2(*args)
+    ref = tk.hamming_top2_reference(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.equal(g, r)
+    assert tk.hamming_top2.launches == before + (A > 0)
+
+
+@pytest.mark.parametrize("B", [120, 3 * 4096])
+def test_kernel_ties_match_plain(B):
+    """Duplicated descriptors: every bank row three times and queries that
+    are bank rows, so best and second tie at 0 and the first column must
+    win, in one chunk of the bank (120) and across chunks (12288)."""
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 2 ** 32, (B // 3, 8), dtype=np.uint32)
+    bank = np.concatenate([base, base, base]).view(np.int32)
+    q = bank[rng.permutation(B)[:64]]
+    args = (torch.from_numpy(q).cuda(), torch.ones(64, dtype=torch.bool,
+                                                   device="cuda"),
+            torch.from_numpy(bank).cuda(), torch.ones(B, dtype=torch.bool,
+                                                      device="cuda"))
     got = tk.hamming_top2(*args)
     ref = tk.hamming_top2_reference(*args)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+    assert (got[0] == 0).all() and (got[2] == 0).all()
 
 
 def test_match_descriptors_launches_the_kernel():
@@ -64,6 +91,10 @@ def test_wrapper_rejects_bad_inputs():
         tk.hamming_top2(a[:, :4].contiguous(), av, b, bv)
     with pytest.raises(ValueError):
         tk.hamming_top2(a, av, b.cpu(), bv)
+    shifted = torch.zeros(64 * 8 + 1, dtype=torch.int32,
+                          device="cuda")[1:].view(64, 8)   # 4-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        tk.hamming_top2(shifted, av, b, bv)
 
 
 def test_match_for_sim3_launches_the_kernel_and_equals_plain():
@@ -86,7 +117,8 @@ def test_match_for_sim3_launches_the_kernel_and_equals_plain():
                      sensor=STEREO)
     rng = np.random.default_rng(0)
     world = synthetic.make_world(rng)
-    eng = SlamEngine(cfg, device="cuda")
+    eng = SlamEngine(cfg)                 # no device: the card by default
+    assert eng.device.type == "cuda"
     for i, T in enumerate(synthetic.straight_trajectory(10, step=0.25)):
         eng.track_stereo(*synthetic.render_world_stereo(world, cam, T, rng,
                                                         1.0), 0.1 * i)

@@ -51,6 +51,8 @@ def _edge_case(name, rng):
         bv[:] = False
     elif name == "bank_of_one":
         b, bv = b[:1], np.ones(1, bool)
+    elif name == "no_query_rows":
+        a, av = a[:0], av[:0]
     elif name == "ties":
         base = _words(rng, 10)
         b = np.concatenate([base, base, base])
@@ -61,11 +63,12 @@ def _edge_case(name, rng):
 
 
 @pytest.mark.parametrize("name", ["all_invalid_rows", "all_invalid_bank",
-                                  "bank_of_one", "ties"])
+                                  "bank_of_one", "ties", "no_query_rows"])
 def test_hamming_top2_edge_cases_match_jax(name):
     a, av, b, bv = _edge_case(name, np.random.default_rng(1))
     got = _port_top2(a, av, b, bv)
     for g, r in zip(got, _jax_top2(a, av, b, bv)):
+        assert g.shape == r.shape
         np.testing.assert_array_equal(g, r)
     if name == "all_invalid_rows":
         assert (got[0][:5] == 256).all() and (got[1][:5] == 0).all()
@@ -74,6 +77,50 @@ def test_hamming_top2_edge_cases_match_jax(name):
         assert (got[2] == 256).all()
     if name == "ties":           # duplicates: best and second both 0
         assert (got[0] == 0).all() and (got[2] == 0).all()
+
+
+def _slice_top2(a, av, b, bv, cols):
+    """The plain version on the bank columns ``cols`` (ascending), its
+    indices mapped back to the whole bank.  No columns reads (257,
+    INT32_MAX, 257), as a lane or warp of the kernel that saw none."""
+    if len(cols) == 0:
+        empty = torch.full((a.shape[0],), tk.MAX_DIST + 1, dtype=torch.int32)
+        return (empty, torch.full_like(empty, np.iinfo(np.int32).max),
+                empty.clone())
+    best, idx, second = tk.hamming_top2_reference(
+        to_tensor(a), to_tensor(av), to_tensor(b[cols]), to_tensor(bv[cols]))
+    return best, torch.from_numpy(cols.astype(np.int32))[idx.long()], second
+
+
+@pytest.mark.parametrize("split", ["lanes-2", "lanes-32", "splits-2",
+                                   "splits-3"])
+@pytest.mark.parametrize("name", ["random", "all_invalid_rows",
+                                  "all_invalid_bank", "bank_of_one", "ties"])
+def test_merge_top2_folds_column_slices_exactly(name, split):
+    """The kernel's merge rule (``merge_top2``): the bank cut into column
+    slices, strided as the kernel cuts it among the lanes of a warp, or
+    in contiguous ranges (the rule holds for any cut into disjoint
+    slices), the plain version on each slice, the partials folded in
+    order and clamped to 256 — bit-exact against the JAX package's
+    best_and_second(masked_hamming_matrix)."""
+    rng = np.random.default_rng(2)
+    if name == "random":
+        a, b = _words(rng, 64), _words(rng, 301)
+        av, bv = rng.random(64) < 0.9, rng.random(301) < 0.9
+    else:
+        a, av, b, bv = _edge_case(name, rng)
+    kind, P = split.split("-")
+    P, cols = int(P), np.arange(b.shape[0])
+    slices = ([cols[lane::P] for lane in range(P)] if kind == "lanes"
+              else np.array_split(cols, P))
+    parts = [_slice_top2(a, av, b, bv, c) for c in slices]
+    best, idx, second = parts[0]
+    for part in parts[1:]:
+        best, idx, second = tk.merge_top2((best, idx, second), part)
+    got = [torch.clamp(best, max=tk.MAX_DIST), idx,
+           torch.clamp(second, max=tk.MAX_DIST)]
+    for g, r in zip(got, _jax_top2(a, av, b, bv)):
+        np.testing.assert_array_equal(g.numpy(), r)
 
 
 @pytest.mark.parametrize("N,M", [(37, 53), (1100, 1000)])

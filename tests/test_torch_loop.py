@@ -303,7 +303,7 @@ def test_consistency_groups_match_jax(built):
     reaching Sim3 in both closers (Sim3 stubbed to fail)."""
     K = built["cfg"].capacity.max_keyframes
     jlc_ = jlc.LoopCloser(built["cfg"], built["voc"])
-    tlc_ = tlc.LoopCloser(built["tcfg"], built["tv"])
+    tlc_ = tlc.LoopCloser(built["tcfg"], built["tv"], device="cpu")
     tried = {"jax": [], "port": []}
 
     class NotOk:
