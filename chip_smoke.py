@@ -1,4 +1,4 @@
-"""Run the PyTorch/CUDA port's stereo SLAM main path once on one GPU.
+"""Run the PyTorch/CUDA port's stereo SLAM paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -36,6 +36,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  from reloc_attempt; that reloc_attempt call is then run
                  again with the kernel and with the plain version, the same
                  generator state, and must give the same matches and pose;
+ 10. windowed  — WindowedSlamEngine(window=4, loop closing off) over
+                 phase 4's jolted corridor: the in-window
+                 TrackReferenceKeyFrame fallback launches hamming_top2
+                 (site window/track_ref_kf), and each of its matching calls,
+                 replayed with the plain version, gives the same output;
+                 never lost, ATE < 0.15 m;
+ 11. bench SLAM — bench.py's stereo SLAM leg: the bench world and its
+                 172-frame walk, WindowedSlamEngine(window=4, loop closing
+                 on), 28 warm-up frames, then three passes of 48 frames,
+                 each ending in flush() and a synchronize: fps per pass and
+                 their median, ms per frame, keyframes per frame, ATE over
+                 bench.py's first 76 frames (< 0.1127 m, the cv2 proxy's),
+                 never lost, hamming_top2 launches by path;
+ 12. bench LOC — bench.py's stereo LOC leg: make_window_tracker(cfg, 8) on
+                 the phase-11 map over frames 28-35, 24 windows a pass,
+                 three passes: fps; every frame ≥ 30 map inliers, ATE over
+                 the window < 0.1127 m; then one LOC window and the SLAM
+                 engine's next window under torch.profiler (kernels and
+                 device ms per frame);
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
@@ -43,9 +62,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  launch (torch.profiler, ``device_ms``; run last so that no
                  profiler session precedes a timed phase) against its
                  bound.
-Every time printed carries the card's name and power limit.  The line
-before the last is the kernels' JSON record (launches per path); the last
-line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+Phases run in the order 1-8, 10-12, 9.  Every time printed carries the
+card's name and power limit.  The line before the last is the kernels'
+JSON record (launches per path); the last line is {"ok": true,
+"device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -271,6 +291,25 @@ def _timed(fn, log):
         return out
     run.__wrapped__ = fn
     return run
+
+
+def _profiled(fn):
+    """(CUDA kernels launched, their summed device ms, wall ms) of one call
+    of ``fn`` under torch.profiler; the profiler's own cost is in the wall
+    time, so compare device ms with an unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    return len(kernels), sum(kernels) / 1e3, wall_ms
 
 
 def phase_slice(smi):
@@ -637,6 +676,260 @@ def live_reloc_call(eng, attempt, args, state):
         raise AssertionError("reloc_attempt: kernel and plain differ")
 
 
+# phases 10-12: the bench.py stereo legs (bench.py:61-64, 86-196)
+BENCH_FRAMES, BENCH_WARMUP, BENCH_PASS = 172, 28, 48
+BENCH_ORACLE_FRAMES = 76       # the span of bench.py's ATE (warm-up + 1 pass)
+CV2_PROXY_ATE = 0.1127         # the cv2 proxy's ATE there (BENCH_r05)
+LOC_WINDOW, LOC_WINDOWS = 8, 24
+
+
+def _record_window_fallback_matches():
+    """Wrap the matcher so that calls made by the windowed engine's
+    in-window fallback are kept (inputs and kernel outputs) for a replay;
+    returns (records, restore)."""
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.ops import matching
+
+    match = matching.match_descriptors
+    records = []
+
+    def recording(*args, **kwargs):
+        out = match(*args, **kwargs)
+        if ht2._site.name == "window/track_ref_kf":
+            records.append((args, kwargs, out))
+        return out
+
+    matching.match_descriptors = recording
+
+    def restore():
+        matching.match_descriptors = match
+
+    return records, restore
+
+
+def phase_windowed_fallback(smi):
+    """Phase 10: the windowed engine over phase 4's jolted corridor; its
+    in-window fallback must launch hamming_top2, and every such matching
+    call, replayed with the plain version, must give the same output."""
+    from orbslam2_tpu_torch.models import frame as frame_mod
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.ops import matching
+    from orbslam2_tpu_torch.runtime import tracking
+    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = bench_config()
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    poses_gt = shaken_trajectory()
+    frames = [synthetic.render_world_stereo(world, cfg.camera, T, rng,
+                                            noise=1.0) for T in poses_gt]
+    # per-layer wall ms: the window tracker builds its own frontend and
+    # tracking steps, so the builders are wrapped while the engine is made
+    layers = {"frontend": [], "track_body": [], "track_ref_kf": [],
+              "window mapping step": []}
+    make_fns, make_front = (tracking.make_tracking_fns,
+                            frame_mod.make_frontend_stereo)
+
+    def timed_fns(c):
+        fns = make_fns(c)
+        return fns._replace(track_body=_timed(fns.track_body,
+                                              layers["track_body"]),
+                            track_ref_kf=_timed(fns.track_ref_kf,
+                                                layers["track_ref_kf"]))
+
+    tracking.make_tracking_fns = timed_fns
+    frame_mod.make_frontend_stereo = lambda c: _timed(make_front(c),
+                                                      layers["frontend"])
+    try:
+        eng = WindowedSlamEngine(cfg, enable_loop_closing=False)
+    finally:
+        tracking.make_tracking_fns = make_fns
+        frame_mod.make_frontend_stereo = make_front
+    eng.f_window_kf = _timed(eng.f_window_kf, layers["window mapping step"])
+    if eng.device.type != "cuda":
+        raise AssertionError(f"windowed: the engine chose {eng.device}")
+    records, restore = _record_window_fallback_matches()
+    ht2.reset_launch_counts()          # the windowed path's count
+    t0 = time.perf_counter()
+    try:
+        for i, (left, right) in enumerate(frames):
+            eng.track_stereo(left, right, 0.1 * i)
+        eng.flush()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    dt = time.perf_counter() - t0
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+    est = eng.frame_poses()
+    n_lost = sum(T is None for T in est)
+    err = ate(est, poses_gt)
+    same = True
+    matching.hamming_top2 = ht2.hamming_top2_reference
+    try:
+        for args, kwargs, (m, d) in records:
+            m_p, d_p = matching.match_descriptors(*args, **kwargs)
+            same = same and torch.equal(m, m_p) and torch.equal(d, d_p)
+    finally:
+        matching.hamming_top2 = ht2.hamming_top2
+    print(f"[windowed] {N_FRAMES} jolted corridor frames in windows of "
+          f"{eng.window}: {N_FRAMES / dt:.2f} fps, KFs inserted "
+          f"{eng.stats['kf_inserted']}, lost {n_lost}, ATE {err:.4f} m; "
+          f"hamming_top2 launches by path {by_site}; {len(records)} "
+          f"in-window fallback matching calls replayed with the plain "
+          f"version: equal {same} ({smi})", flush=True)
+    for name, ms in layers.items():
+        if ms:
+            print(f"[windowed] layer {name}: {len(ms)} calls, median "
+                  f"{np.median(ms):.1f} ms, total {np.sum(ms):.0f} ms "
+                  f"({smi})", flush=True)
+    if by_site.get("window/track_ref_kf", 0) < 1 or not records:
+        raise AssertionError("windowed: the in-window fallback never "
+                             "launched the hamming_top2 kernel")
+    if not same:
+        raise AssertionError("windowed: kernel and plain differ on the "
+                             "in-window fallback's live input")
+    if n_lost or not err < 0.15:
+        raise AssertionError(f"windowed: lost {n_lost}, ATE {err}")
+    return by_site
+
+
+def phase_bench_slam(smi):
+    """Phase 11: bench.py's stereo SLAM leg on the port (bench.py:86-121):
+    WindowedSlamEngine(window=4), loop closing on, 28 warm-up frames,
+    then three passes of 48 frames, each ending in flush() and a
+    synchronize."""
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     reset_launch_counts)
+    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = bench_config()
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    # BENCH_FRAMES for the leg, then one window more for phase 12's profile
+    poses_gt = synthetic.straight_trajectory(BENCH_FRAMES + 4, step=0.25)
+    t0 = time.perf_counter()
+    frames = [synthetic.render_world_stereo(world, cfg.camera, T, rng,
+                                            noise=1.0) for T in poses_gt]
+    render_s = time.perf_counter() - t0
+    eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
+    reset_launch_counts()              # the bench SLAM leg's count
+    t0 = time.perf_counter()
+    for i in range(BENCH_WARMUP):
+        eng.track_stereo(*frames[i], 0.1 * i)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    pass_fps, kf_counts, start = [], [], BENCH_WARMUP
+    for _ in range(3):
+        kf_before = eng.stats["kf_inserted"]
+        t0 = time.perf_counter()
+        for i in range(start, start + BENCH_PASS):
+            eng.track_stereo(*frames[i], 0.1 * i)
+        eng.flush()
+        torch.cuda.synchronize()
+        pass_fps.append(BENCH_PASS / (time.perf_counter() - t0))
+        kf_counts.append(eng.stats["kf_inserted"] - kf_before)
+        start += BENCH_PASS
+    by_site = dict(hamming_top2.launches_by_site)
+    est = eng.frame_poses()
+    n_lost = sum(T is None for T in est)
+    ate_oracle = ate(est[:BENCH_ORACLE_FRAMES],
+                     poses_gt[:BENCH_ORACLE_FRAMES])
+    ate_all = ate(est, poses_gt[:BENCH_FRAMES])
+    fps = float(np.median(pass_fps))
+    print(f"[bench-slam] {BENCH_FRAMES} frames (rendered with 4 more in "
+          f"{render_s:.1f} "
+          f"s; warm-up {BENCH_WARMUP} frames {warm_s:.1f} s): pass fps "
+          f"{[round(f, 3) for f in pass_fps]}, median {fps:.3f} fps = "
+          f"{1e3 / fps:.1f} ms/frame, KFs per frame "
+          f"{np.median(kf_counts) / BENCH_PASS:.4f} (per pass {kf_counts}), "
+          f"KFs inserted {eng.stats['kf_inserted']}, live {eng.n_kfs}, "
+          f"loops closed {eng.stats['loops_closed']}, lost {n_lost}, ATE "
+          f"{ate_oracle:.4f} m over bench.py's first {BENCH_ORACLE_FRAMES} "
+          f"frames (cv2 proxy {CV2_PROXY_ATE}), {ate_all:.4f} m over all; "
+          f"hamming_top2 launches by path {by_site} ({smi})", flush=True)
+    if n_lost or not ate_oracle < CV2_PROXY_ATE:
+        raise AssertionError(f"bench-slam: lost {n_lost}, ATE {ate_oracle} "
+                             f"(need < {CV2_PROXY_ATE})")
+    return eng, frames, poses_gt, by_site, {
+        "slam_fps": fps, "pass_fps": pass_fps, "ate_m": ate_oracle}
+
+
+def phase_bench_loc(eng, frames, poses_gt, smi):
+    """Phase 12: bench.py's stereo LOC leg (bench.py:160-196):
+    make_window_tracker(cfg, 8) on the phase-11 map over frames 28-35,
+    24 windows a pass, three passes.  Each window starts from the SLAM
+    estimate of frames 27 and 26 and the map points of frame 27's
+    reference keyframe (bench.py chains windows over one repeated buffer,
+    which sends the tracker 1.75 m back at every window boundary).  Last,
+    one LOC window and the SLAM engine's next window under
+    torch.profiler: kernels and device ms per frame."""
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     reset_launch_counts)
+    from orbslam2_tpu_torch.runtime import streaming
+
+    first = BENCH_WARMUP
+    track = streaming.make_window_tracker(eng.cfg, LOC_WINDOW)
+    if track.device.type != "cuda":
+        raise AssertionError(f"bench-loc: the tracker chose {track.device}")
+    est = eng.frame_poses()
+    ref = eng.trajectory[first - 1].ref_kf
+    state_T = torch.as_tensor(np.stack([est[first - 1], est[first - 2]]),
+                              dtype=torch.float32, device="cuda")
+    assoc0 = eng.ms.kf_mp[ref]
+    flat = torch.from_numpy(streaming.pack_window_uint8(
+        frames[first:first + LOC_WINDOW])).cuda()
+    res = track(eng.ms, flat, state_T, assoc0, ref)      # first use
+    torch.cuda.synchronize()
+    reset_launch_counts()              # the LOC leg's count
+    rates, worst = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(LOC_WINDOWS):
+            sm = track(eng.ms, flat, state_T, assoc0, ref).summaries.cpu()
+            worst.append(int(sm[:, 34].min()))
+        rates.append(LOC_WINDOW * LOC_WINDOWS / (time.perf_counter() - t0))
+    by_site = dict(hamming_top2.launches_by_site)
+    fps = float(np.median(rates))
+    sm = res.summaries.cpu().numpy()
+    est_loc = [sm[i, :16].reshape(4, 4) for i in range(LOC_WINDOW)]
+    err = ate(est_loc, poses_gt[first:first + LOC_WINDOW])
+    print(f"[bench-loc] {LOC_WINDOWS} windows of {LOC_WINDOW} a pass: pass "
+          f"fps {[round(f, 3) for f in rates]}, median {fps:.3f} fps = "
+          f"{1e3 / fps:.1f} ms/frame; map inliers per frame "
+          f"{sm[:, 34].astype(int).tolist()} (fewest in any window "
+          f"{min(worst)}), ATE {err:.4f} m over the window; hamming_top2 "
+          f"launches {by_site} ({smi})", flush=True)
+    if min(worst) < eng.cfg.tracking.local_map_tracking_threshold:
+        raise AssertionError(f"bench-loc: a frame tracked only {min(worst)} "
+                             f"map inliers")
+    if not err < CV2_PROXY_ATE:
+        raise AssertionError(f"bench-loc: ATE {err} m")
+    # after every timed pass: one LOC window, then the SLAM engine's next
+    # window (frames 172-175, tracked and retired), under the profiler
+    n_loc, dev_loc, wall_loc = _profiled(
+        lambda: track(eng.ms, flat, state_T, assoc0, ref).summaries.cpu())
+
+    def slam_window():
+        for i in range(BENCH_FRAMES, BENCH_FRAMES + 4):
+            eng.track_stereo(*frames[i], 0.1 * i)
+        eng.flush()
+
+    kf0 = eng.stats["kf_inserted"]
+    n_slam, dev_slam, wall_slam = _profiled(slam_window)
+    print(f"[profile] LOC window of {LOC_WINDOW}: {n_loc / LOC_WINDOW:.0f} "
+          f"kernels and {dev_loc / LOC_WINDOW:.1f} ms of device time a "
+          f"frame ({wall_loc / LOC_WINDOW:.1f} ms wall under the profiler; "
+          f"busy {100 * dev_loc / LOC_WINDOW * fps / 1e3:.1f}% of the "
+          f"unprofiled {1e3 / fps:.1f} ms); SLAM window of 4 with "
+          f"{eng.stats['kf_inserted'] - kf0} keyframe(s): "
+          f"{n_slam / 4:.0f} kernels and {dev_slam / 4:.1f} ms of device "
+          f"time a frame ({wall_slam / 4:.1f} ms wall under the profiler) "
+          f"({smi})", flush=True)
+    return by_site, {"loc_fps": fps, "pass_fps": rates}
+
+
 def main():
     smi = phase_device()
     phase_build(smi)
@@ -648,9 +941,22 @@ def main():
     res = phase_live_loop_call(eng)
     phase_warm_loop_layers(eng, res, smi)
     reloc_sites = phase_reloc(eng, poses_gt, scene, rng, smi)
+    del eng
+    windowed_sites = phase_windowed_fallback(smi)
+    eng, frames, poses_gt, bench_sites, slam = phase_bench_slam(smi)
+    loc_sites, loc = phase_bench_loc(eng, frames, poses_gt, smi)
+    del eng, frames
     k = phase_kernel_times(smi, main_inputs)
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
-               "reloc (phase 8)": reloc_sites}
+               "reloc (phase 8)": reloc_sites,
+               "windowed (phase 10)": windowed_sites,
+               "bench SLAM (phase 11)": bench_sites,
+               "bench LOC (phase 12)": loc_sites}
+    print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
+          f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
+          f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
+          f"(median of {[round(f, 3) for f in loc['pass_fps']]}) ({smi})",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

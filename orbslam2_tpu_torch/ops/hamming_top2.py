@@ -10,7 +10,9 @@ build or launch failure raises.
 ``hamming_top2.launches`` counts kernel launches; ``launches_by_site``
 splits that count by the caller that named itself with
 :func:`launch_site` (the paths that reach the kernel: tracking's
-TrackReferenceKeyFrame, loop closing's Sim3 matching, relocalization).
+TrackReferenceKeyFrame, loop closing's Sim3 matching, relocalization;
+the windowed engine's in-window fallback counts as
+``window/track_ref_kf``).
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ _site = threading.local()
 @contextlib.contextmanager
 def launch_site(name: str):
     """Attribute this thread's kernel launches inside the block to
-    ``name`` in ``hamming_top2.launches_by_site``."""
+    ``name`` in ``hamming_top2.launches_by_site``; inside another site's
+    block the name is ``outer/name``."""
     prev = getattr(_site, "name", None)
-    _site.name = name
+    _site.name = f"{prev}/{name}" if prev else name
     try:
         yield
     finally:

@@ -99,11 +99,15 @@ class SlamEngine:
     def track_stereo(self, left: np.ndarray, right: np.ndarray,
                      timestamp: float) -> Optional[np.ndarray]:
         """One rectified uint8 stereo pair → Tcw [4, 4] or None (lost)."""
+        return self._track_common(self._upload_pair(left, right), timestamp)
+
+    def _upload_pair(self, left: np.ndarray, right: np.ndarray):
+        """uint8 images → a pair of float32 [H, W] tensors on the device."""
         def up(img):
             arr = np.ascontiguousarray(img, dtype=np.uint8)
             return torch.from_numpy(arr).to(self.device).to(torch.float32)
 
-        return self._track_common((up(left), up(right)), timestamp)
+        return up(left), up(right)
 
     def track_rgbd(self, gray, depth, timestamp):
         raise _not_ported("RGB-D tracking", "the RGB-D/mono frontends")
@@ -119,7 +123,7 @@ class SlamEngine:
     def _track_common(self, pair, timestamp: float) -> Optional[np.ndarray]:
         if self.localization_only:
             raise _not_ported("localization mode",
-                              "track_loc_body and runtime/streaming.py")
+                              "track_loc_body and localization mode")
         # LOST with ≤5 keyframes → full reset (Tracking.cc:571-580)
         if self.state == tracking.LOST and self.n_kfs <= 5:
             self._auto_reset()
@@ -205,9 +209,29 @@ class SlamEngine:
         return self.last_Tcw.astype(np.float32)
 
     # -------------------------------------------------- keyframe decision
-    def _need_new_keyframe(self, sm: tracking.Summary) -> bool:
-        """NeedNewKeyFrame (Tracking.cc:1076-1160) with synchronous mapping
-        (the mapper is always idle between frames)."""
+    def _mapper_idle(self) -> bool:
+        """LocalMapping::AcceptKeyFrames: synchronous mapping is always
+        idle between frames; the windowed engine overrides."""
+        return True
+
+    def _mapping_queue_len(self) -> int:
+        return 0
+
+    def _interrupt_ba(self) -> None:
+        """LocalMapping::InterruptBA (Tracking.cc:1146): a no-op when
+        mapping is synchronous."""
+
+    def _need_new_keyframe(self, sm: tracking.Summary,
+                           ref_override: Optional[int] = None) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:1076-1160): c1b needs an idle
+        mapper; when it is busy the decision interrupts the running BA and
+        queues only for non-mono sensors with fewer than 3 waiting
+        keyframes.
+
+        ``ref_override``: the windowed engine replays decisions from
+        summaries computed before an in-window insert; after one, the
+        inserting frame's inlier count stands in for the new reference
+        keyframe's tracked count."""
         t = self.cfg.tracking
         if not self._free_kf_slots and not self._evict_for_capacity():
             if not self._capacity_warned:
@@ -221,18 +245,27 @@ class SlamEngine:
         n_inliers = sm.n_inliers_map
         ref_matches = max(
             sm.ref_tracked3 if self.kf_ordinal > 2 else sm.ref_tracked2, 1)
+        if ref_override is not None:
+            ref_matches = max(ref_override, 1)
         need_close = (sm.n_tracked_close < 100
                       and sm.n_nontracked_close > 70)
         th_ref_ratio = 0.75 if self.cfg.sensor != MONOCULAR else 0.9
         if self.kf_ordinal < 2:
             th_ref_ratio = 0.4
+        idle = self._mapper_idle()
         c1a = frames_since >= int(self.cfg.camera.fps)
-        c1b = frames_since >= t.min_frames
+        c1b = frames_since >= t.min_frames and idle
         c1c = (self.cfg.sensor != MONOCULAR
                and (n_inliers < ref_matches * 0.25 or need_close))
         c2 = ((n_inliers < ref_matches * th_ref_ratio or need_close)
               and n_inliers > 15)
-        return (c1a or c1b or c1c) and c2
+        if not ((c1a or c1b or c1c) and c2):
+            return False
+        if idle:
+            return True
+        self._interrupt_ba()
+        return (self.cfg.sensor != MONOCULAR
+                and self._mapping_queue_len() < 3)
 
     # ---------------------------------------------------- keyframe insert
     def _evict_for_capacity(self) -> bool:
@@ -264,12 +297,19 @@ class SlamEngine:
             e.ref_kf = p
         self.trajectory.append(e)
 
+    def _counter_args(self):
+        """(visible, found) int32 [P] accumulators folded at insertion.
+        The per-frame path folds its counters every frame, so zeros; the
+        windowed engine hands over (and resets) its window's sums."""
+        return self._zeros_p, self._zeros_p
+
     def _run_mapping_step(self, ms, fd, Tcw, assoc, kf_slot: int,
                           parent: int, frame_id: int, timestamp: float):
+        vis, found = self._counter_args()
         ms, stats_dev = self.f_mapping_step(
             ms, fd, Tcw, assoc, kf_slot, self.kf_ordinal, parent, frame_id,
-            timestamp, self.kf_ordinal >= 3, self.kf_ordinal >= 5,
-            self._zeros_p, self._zeros_p)
+            timestamp, self.kf_ordinal >= 3, self.kf_ordinal >= 5, vis,
+            found)
         stats = stats_dev.cpu().numpy()
         self.kf_ordinal += 1
         self.n_kfs += 1

@@ -144,3 +144,62 @@ def test_match_for_sim3_launches_the_kernel_and_equals_plain():
     assert torch.equal(res.inliers, res_p.inliers)
     assert torch.equal(res.R12, res_p.R12) and torch.equal(res.t12,
                                                            res_p.t12)
+
+
+def test_windowed_fallback_launches_the_kernel_and_equals_plain():
+    """The windowed engine on the card over a corridor walk with a yaw
+    jolt inside a window: the in-window TrackReferenceKeyFrame fallback
+    launches the kernel (site ``window/track_ref_kf``), and each of its
+    matching calls, replayed on the live input with the plain version,
+    gives the same matches and distances."""
+    from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                           OrbConfig, STEREO, SlamConfig)
+    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0,
+                       width=640, height=480, fps=10.0, th_depth=60.0)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=600),
+                     capacity=CapacityConfig(max_keyframes=16,
+                                             max_map_points=4096,
+                                             local_ba_keyframes=8,
+                                             local_ba_points=1024),
+                     sensor=STEREO)
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    poses = synthetic.straight_trajectory(20, step=0.25)
+    c, s = np.cos(0.12), np.sin(0.12)
+    poses[13] = np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0],
+                          [0, 0, 0, 1]], poses[13].dtype) @ poses[13]
+    eng = WindowedSlamEngine(cfg, enable_loop_closing=False)
+    assert eng.device.type == "cuda"
+    match = matching.match_descriptors
+    recorded = []
+
+    def recording(*args, **kwargs):
+        out = match(*args, **kwargs)
+        if tk._site.name == "window/track_ref_kf":
+            recorded.append((args, kwargs, out))
+        return out
+
+    tk.reset_launch_counts()
+    matching.match_descriptors = recording
+    try:
+        for i, T in enumerate(poses):
+            eng.track_stereo(*synthetic.render_world_stereo(
+                world, cam, T, rng, 1.0), 0.1 * i)
+        eng.flush()
+        torch.cuda.synchronize()
+    finally:
+        matching.match_descriptors = match
+    assert tk.hamming_top2.launches_by_site.get("window/track_ref_kf", 0) \
+        >= 1, tk.hamming_top2.launches_by_site
+    assert recorded
+    matching.hamming_top2 = tk.hamming_top2_reference
+    try:
+        for args, kwargs, (m, d) in recorded:
+            m_p, d_p = match(*args, **kwargs)
+            assert torch.equal(m, m_p) and torch.equal(d, d_p)
+    finally:
+        matching.hamming_top2 = tk.hamming_top2
+    assert all(p is not None for p in eng.frame_poses())

@@ -1,6 +1,7 @@
 """The port's stateful entry points run on the CUDA card by default.
 
-``SlamEngine(cfg)`` and ``LoopCloser(cfg, voc)`` with no ``device`` take
+``SlamEngine(cfg)``, ``WindowedSlamEngine(cfg)``, ``LoopCloser(cfg, voc)``
+and ``streaming.make_window_tracker(cfg, window)`` with no ``device`` take
 the card, and raise where torch has no CUDA device (forced here with
 ``monkeypatch``, so the tests mean the same on a host with a card); an
 explicit ``device="cpu"`` builds them on the CPU."""
@@ -12,8 +13,10 @@ from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
                                        OrbConfig, STEREO, SlamConfig)
 from orbslam2_tpu_torch.models import vocabulary as voc_mod
 from orbslam2_tpu_torch.runtime import device as device_mod
+from orbslam2_tpu_torch.runtime import streaming
 from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
 from orbslam2_tpu_torch.runtime.slam import SlamEngine
+from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
 
 torch.set_num_threads(2)
 
@@ -29,24 +32,32 @@ CFG = SlamConfig(
 def _build(entry, **kw):
     if entry == "SlamEngine":
         return SlamEngine(CFG, **kw)
+    if entry == "WindowedSlamEngine":
+        return WindowedSlamEngine(CFG, **kw)
+    if entry == "make_window_tracker":
+        return streaming.make_window_tracker(CFG, 2, **kw)
     voc = voc_mod.default_vocabulary(k=CFG.capacity.vocab_k,
                                      levels=CFG.capacity.vocab_levels)
     return LoopCloser(CFG, voc, **kw)
 
 
-@pytest.mark.parametrize("entry", ["SlamEngine", "LoopCloser"])
+ENTRIES = ["SlamEngine", "LoopCloser", "WindowedSlamEngine",
+           "make_window_tracker"]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_no_device_raises_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         _build(entry)
 
 
-@pytest.mark.parametrize("entry", ["SlamEngine", "LoopCloser"])
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_explicit_cpu_builds(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     obj = _build(entry, device="cpu")
     assert obj.device == torch.device("cpu")
-    if entry == "SlamEngine":
+    if entry.endswith("SlamEngine"):
         assert obj.ms.kf_valid.device.type == "cpu"
         assert obj.loop_closer.device == torch.device("cpu")
 

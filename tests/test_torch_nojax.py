@@ -3,8 +3,9 @@
 In a subprocess where ``import jax`` fails, import the port and
 ``chip_smoke``, run a few stereo frames through ``SlamEngine.track_stereo``
 on the CPU with loop closing on (keyframe DB registration, detection,
-then relocalization from LOST), and check that nothing of jax or
-``orbslam2_tpu`` was loaded.
+then relocalization from LOST), then through ``WindowedSlamEngine`` in
+windows of two and one LOC window of ``streaming.make_window_tracker``,
+and check that nothing of jax or ``orbslam2_tpu`` was loaded.
 Also: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -53,6 +54,21 @@ eng.state = tracking.LOST                   # relocalization runs too
 eng.track_stereo(*synthetic.render_world_stereo(world, cam, poses[-1], rng,
                                                 1.0), 9.0)
 eng.finish_gba()
+from orbslam2_tpu_torch.runtime import streaming
+from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
+frames = [synthetic.render_world_stereo(world, cam, T, rng, 1.0)
+          for T in poses]
+weng = WindowedSlamEngine(cfg, enable_loop_closing=False, device="cpu",
+                          window=2)
+for i, (left, right) in enumerate(frames[:7]):
+    weng.track_stereo(left, right, 0.1 * i)
+assert weng._pending is not None                     # a window in flight
+assert len(weng.frame_poses()) == 7 and weng.state == 2, weng.stats
+track = streaming.make_window_tracker(cfg, 1, device="cpu")
+res = track(weng.ms, streaming.pack_window_uint8(frames[7:]),
+            np.stack([weng.last_Tcw, weng.last_Tcw]), weng.last_assoc,
+            weng.ref_kf)
+assert res.summaries.shape == (1, 40) and float(res.summaries[0, 34]) >= 30
 bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
              or m.startswith("orbslam2_tpu.")
              or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
