@@ -1,4 +1,4 @@
-"""Run the PyTorch/CUDA port's stereo SLAM paths once on one GPU.
+"""Run the PyTorch/CUDA port's SLAM paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -50,11 +50,35 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  bench.py's first 76 frames (< 0.1127 m, the cv2 proxy's),
                  never lost, hamming_top2 launches by path;
  12. bench LOC — bench.py's stereo LOC leg: make_window_tracker(cfg, 8) on
-                 the phase-11 map over frames 28-35, 24 windows a pass,
+                 the phase-11 map over frames 28-35, 6 windows a pass
+                 (bench.py runs 24; cut to keep the run in half its limit),
                  three passes: fps; every frame ≥ 30 map inliers, ATE over
                  the window < 0.1127 m; then one LOC window and the SLAM
                  engine's next window under torch.profiler (kernels and
                  device ms per frame);
+ 13. RGB-D     — SlamEngine(RGBD, loop closing off) over phase 4's shaken
+                 corridor rendered with depth: never lost, ATE < 0.15 m,
+                 hamming_top2 launched from track_ref_kf, each of those
+                 matching calls replayed with the plain version equal;
+ 14. bench RGB-D — bench.py's RGB-D leg: WindowedSlamEngine(window=4, loop
+                 closing on), 60 frames at 0.12 m, 12 warm-up, 48 timed
+                 ending in flush() and a synchronize: fps, keyframes per
+                 frame, ATE (< 0.15 m), never lost; the bench camera with
+                 sensor=RGBD (the leg's reference YAML is not here);
+ 15. localization — phase 13's map in localization mode (a LoopCloser
+                 attached, its DB holding the map's keyframes): 12 frames
+                 past the map (VO-mode frames counted), then LOST and a
+                 re-render of frame 2 must relocalize within 0.1 m,
+                 launching hamming_top2 from reloc_attempt (that call
+                 replayed with the plain version); the map must not grow;
+                 phase 14's windowed engine tracks one window in the mode
+                 and inserts no keyframe;
+ 16. GBA solvers — one robust GBA chunk on a perturbed RGB-D map of the
+                 default CapacityConfig() (512 keyframe slots, 32,768
+                 points): through CG (gba_chunk's choice past 256 slots)
+                 and forced through the dense Schur solve; ms (CUDA
+                 events) and peak device memory of each, agreement within
+                 stated tolerances, kernels and device ms per CG step;
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
@@ -62,7 +86,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  launch (torch.profiler, ``device_ms``; run last so that no
                  profiler session precedes a timed phase) against its
                  bound.
-Phases run in the order 1-8, 10-12, 9.  Every time printed carries the
+Phases run in the order 1-8, 10-16, 9.  Every time printed carries the
 card's name and power limit.  The line before the last is the kernels'
 JSON record (launches per path); the last line is {"ok": true,
 "device": {...}}.  Imports nothing of JAX.
@@ -70,6 +94,7 @@ JSON record (launches per path); the last line is {"ok": true,
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -312,6 +337,26 @@ def _profiled(fn):
     return len(kernels), sum(kernels) / 1e3, wall_ms
 
 
+def _top_kernels(fn, n=3):
+    """[(kernel name, device ms, launches)] of the ``n`` kernels that took
+    the most device time in one call of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.device_time_total / 1e3, c + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(name[:60], round(t, 3), c) for name, (t, c) in ranked]
+
+
 def phase_slice(smi):
     from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
                                                      reset_launch_counts)
@@ -376,7 +421,7 @@ def phase_slice(smi):
     if engine_launches < 1:
         raise AssertionError("slice: the main path never launched the "
                              "hamming_top2 kernel")
-    return eng, engine_launches, by_site
+    return eng, engine_launches, by_site, frames
 
 
 def phase_live_call(eng, engine_launches):
@@ -680,13 +725,13 @@ def live_reloc_call(eng, attempt, args, state):
 BENCH_FRAMES, BENCH_WARMUP, BENCH_PASS = 172, 28, 48
 BENCH_ORACLE_FRAMES = 76       # the span of bench.py's ATE (warm-up + 1 pass)
 CV2_PROXY_ATE = 0.1127         # the cv2 proxy's ATE there (BENCH_r05)
-LOC_WINDOW, LOC_WINDOWS = 8, 24
+LOC_WINDOW, LOC_WINDOWS = 8, 6      # bench.py: 24 windows a pass
 
 
-def _record_window_fallback_matches():
-    """Wrap the matcher so that calls made by the windowed engine's
-    in-window fallback are kept (inputs and kernel outputs) for a replay;
-    returns (records, restore)."""
+def _record_matches(site):
+    """Wrap the matcher so that calls made at launch site ``site`` are kept
+    (inputs and kernel outputs) for a replay; returns (records,
+    restore)."""
     from orbslam2_tpu_torch.ops import hamming_top2 as ht2
     from orbslam2_tpu_torch.ops import matching
 
@@ -695,7 +740,7 @@ def _record_window_fallback_matches():
 
     def recording(*args, **kwargs):
         out = match(*args, **kwargs)
-        if ht2._site.name == "window/track_ref_kf":
+        if ht2._site.name == site:
             records.append((args, kwargs, out))
         return out
 
@@ -707,23 +752,18 @@ def _record_window_fallback_matches():
     return records, restore
 
 
-def phase_windowed_fallback(smi):
-    """Phase 10: the windowed engine over phase 4's jolted corridor; its
-    in-window fallback must launch hamming_top2, and every such matching
-    call, replayed with the plain version, must give the same output."""
+def phase_windowed_fallback(smi, frames):
+    """Phase 10: the windowed engine over phase 4's jolted corridor (its
+    frames, rendered there); its in-window fallback must launch
+    hamming_top2, and every such matching call, replayed with the plain
+    version, must give the same output."""
     from orbslam2_tpu_torch.models import frame as frame_mod
     from orbslam2_tpu_torch.ops import hamming_top2 as ht2
-    from orbslam2_tpu_torch.ops import matching
     from orbslam2_tpu_torch.runtime import tracking
     from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
-    from orbslam2_tpu_torch.utils import synthetic
 
     cfg = bench_config()
-    rng = np.random.default_rng(0)
-    world = synthetic.make_world(rng)
     poses_gt = shaken_trajectory()
-    frames = [synthetic.render_world_stereo(world, cfg.camera, T, rng,
-                                            noise=1.0) for T in poses_gt]
     # per-layer wall ms: the window tracker builds its own frontend and
     # tracking steps, so the builders are wrapped while the engine is made
     layers = {"frontend": [], "track_body": [], "track_ref_kf": [],
@@ -749,7 +789,7 @@ def phase_windowed_fallback(smi):
     eng.f_window_kf = _timed(eng.f_window_kf, layers["window mapping step"])
     if eng.device.type != "cuda":
         raise AssertionError(f"windowed: the engine chose {eng.device}")
-    records, restore = _record_window_fallback_matches()
+    records, restore = _record_matches("window/track_ref_kf")
     ht2.reset_launch_counts()          # the windowed path's count
     t0 = time.perf_counter()
     try:
@@ -764,14 +804,7 @@ def phase_windowed_fallback(smi):
     est = eng.frame_poses()
     n_lost = sum(T is None for T in est)
     err = ate(est, poses_gt)
-    same = True
-    matching.hamming_top2 = ht2.hamming_top2_reference
-    try:
-        for args, kwargs, (m, d) in records:
-            m_p, d_p = matching.match_descriptors(*args, **kwargs)
-            same = same and torch.equal(m, m_p) and torch.equal(d, d_p)
-    finally:
-        matching.hamming_top2 = ht2.hamming_top2
+    same = _replay_plain(records)
     print(f"[windowed] {N_FRAMES} jolted corridor frames in windows of "
           f"{eng.window}: {N_FRAMES / dt:.2f} fps, KFs inserted "
           f"{eng.stats['kf_inserted']}, lost {n_lost}, ATE {err:.4f} m; "
@@ -792,6 +825,23 @@ def phase_windowed_fallback(smi):
     if n_lost or not err < 0.15:
         raise AssertionError(f"windowed: lost {n_lost}, ATE {err}")
     return by_site
+
+
+def _replay_plain(records):
+    """Every recorded matching call again with the plain version: True
+    when each gives the kernel's matches and distances."""
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.ops import matching
+
+    same = True
+    matching.hamming_top2 = ht2.hamming_top2_reference
+    try:
+        for args, kwargs, (m, d) in records:
+            m_p, d_p = matching.match_descriptors(*args, **kwargs)
+            same = same and torch.equal(m, m_p) and torch.equal(d, d_p)
+    finally:
+        matching.hamming_top2 = ht2.hamming_top2
+    return same
 
 
 def phase_bench_slam(smi):
@@ -859,7 +909,8 @@ def phase_bench_slam(smi):
 def phase_bench_loc(eng, frames, poses_gt, smi):
     """Phase 12: bench.py's stereo LOC leg (bench.py:160-196):
     make_window_tracker(cfg, 8) on the phase-11 map over frames 28-35,
-    24 windows a pass, three passes.  Each window starts from the SLAM
+    6 windows a pass (bench.py runs 24), three passes.  Each window
+    starts from the SLAM
     estimate of frames 27 and 26 and the map points of frame 27's
     reference keyframe (bench.py chains windows over one repeated buffer,
     which sends the tracker 1.75 m back at every window boundary).  Last,
@@ -930,11 +981,376 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
     return by_site, {"loc_fps": fps, "pass_fps": rates}
 
 
+# phases 13-16: RGB-D, localization mode, the GBA solvers
+LOC_NEXT = 12                  # corridor frames tracked in localization mode
+RGBD_FRAMES, RGBD_WARMUP, RGBD_STEP = 60, 12, 0.12   # bench.py:246-256
+GBA_FRAMES = 20
+
+
+def rgbd_config(capacity=None):
+    """The bench camera and widths with ``sensor=RGBD``."""
+    from orbslam2_tpu_torch.config import RGBD
+
+    cfg = bench_config()
+    return dataclasses.replace(cfg, sensor=RGBD,
+                               capacity=capacity or cfg.capacity)
+
+
+def render_rgbd(world, cam, poses, rng):
+    from orbslam2_tpu_torch.utils import synthetic
+
+    return [synthetic.render_world(world, cam, T, rng, 1.0, with_depth=True)
+            for T in poses]
+
+
+def phase_rgbd_slice(smi):
+    """Phase 13: SlamEngine(RGBD, loop closing off) over phase 4's shaken
+    corridor, rendered with depth; never lost, ATE < 0.15 m, hamming_top2
+    launched from track_ref_kf, and each of those matching calls, replayed
+    with the plain version, gives the same output."""
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.runtime import tracking
+    from orbslam2_tpu_torch.runtime.slam import SlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = rgbd_config()
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    poses_gt = shaken_trajectory()
+    frames = render_rgbd(world, cfg.camera, poses_gt, rng)
+    eng = SlamEngine(cfg, enable_loop_closing=False)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"rgbd: SlamEngine chose {eng.device}")
+    records, restore = _record_matches("track_ref_kf")
+    ht2.reset_launch_counts()          # the RGB-D path's count
+    frame_ms = []
+    try:
+        for i, (gray, depth) in enumerate(frames):
+            t0 = time.perf_counter()
+            Tcw = eng.track_rgbd(gray, depth, 0.1 * i)
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            if eng.state != tracking.OK or Tcw is None:
+                raise AssertionError(f"rgbd: lost at frame {i}")
+            if not np.all(np.isfinite(Tcw)):
+                raise AssertionError(f"rgbd: bad pose at frame {i}: {Tcw}")
+    finally:
+        restore()
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+    err = ate(eng.frame_poses(), poses_gt)
+    same = _replay_plain(records)
+    print(f"[rgbd] {N_FRAMES} shaken corridor frames, RGB-D: median "
+          f"{np.median(frame_ms[1:]):.1f} ms/frame after frame 0, KFs "
+          f"inserted {eng.stats['kf_inserted']}, live map points "
+          f"{len(eng.map_points())}, ATE {err:.4f} m; hamming_top2 "
+          f"launches by path {by_site}; {len(records)} track_ref_kf "
+          f"matching calls replayed with the plain version: equal {same} "
+          f"({smi})", flush=True)
+    if by_site.get("track_ref_kf", 0) < 1 or not records:
+        raise AssertionError("rgbd: track_ref_kf never launched "
+                             "hamming_top2")
+    if not same:
+        raise AssertionError("rgbd: kernel and plain differ on "
+                             "track_ref_kf's live input")
+    if not err < 0.15:
+        raise AssertionError(f"rgbd: ATE {err} m (need < 0.15)")
+    return eng, world, rng, poses_gt, by_site
+
+
+def phase_bench_rgbd(smi):
+    """Phase 14: bench.py's RGB-D leg (bench.py:233-262) on the port:
+    WindowedSlamEngine(window=4, loop closing on) over 60 frames of
+    straight_trajectory(60, step=0.12), 12 warm-up frames, then 48 timed
+    frames ending in flush() and a synchronize.  The leg's YAML
+    (Config/RealSense-D435i-IRD.yaml of the reference) is not in the
+    repository, so the bench camera and widths run with sensor=RGBD; the
+    world is the bench's, made from a fresh default_rng(0)."""
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     reset_launch_counts)
+    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = rgbd_config()
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    # one window more for phase 15
+    poses_gt = synthetic.straight_trajectory(RGBD_FRAMES + 4, step=RGBD_STEP)
+    frames = render_rgbd(world, cfg.camera, poses_gt, rng)
+    eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
+    reset_launch_counts()              # the bench RGB-D leg's count
+    for i in range(RGBD_WARMUP):
+        eng.track_rgbd(*frames[i], i / 30.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RGBD_WARMUP, RGBD_FRAMES):
+        eng.track_rgbd(*frames[i], i / 30.0)
+    eng.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_site = dict(hamming_top2.launches_by_site)
+    est = eng.frame_poses()
+    n_lost = sum(T is None for T in est)
+    err = ate(est, poses_gt[:RGBD_FRAMES])
+    n_timed = RGBD_FRAMES - RGBD_WARMUP
+    fps = n_timed / dt
+    kf_per_frame = eng.stats["kf_inserted"] / RGBD_FRAMES
+    print(f"[bench-rgbd] {RGBD_FRAMES} frames at {RGBD_STEP} m, "
+          f"{RGBD_WARMUP} warm-up: {fps:.3f} fps = {1e3 / fps:.1f} ms/frame "
+          f"over {n_timed} frames, KFs per frame {kf_per_frame:.4f} (as "
+          f"bench.py: inserted over all {RGBD_FRAMES}), live KFs "
+          f"{eng.n_kfs}, lost {n_lost}, ATE {err:.4f} m; hamming_top2 "
+          f"launches by path {by_site} ({smi})", flush=True)
+    if n_lost or not err < 0.15:
+        raise AssertionError(f"bench-rgbd: lost {n_lost}, ATE {err}")
+    return eng, frames, poses_gt, by_site, {
+        "rgbd_fps": fps, "kf_per_frame": kf_per_frame, "ate_m": err}
+
+
+def phase_localization(eng, world, rng, poses_gt, win, smi):
+    """Phase 15: localization mode on phase 13's RGB-D map.  The slice
+    ran with loop closing off, so a LoopCloser is attached and each live
+    keyframe registered in its DB, as on_keyframe would have done.  The
+    engine tracks the next LOC_NEXT corridor frames (the VO path; the
+    VO-mode frames are counted), then, set LOST, a re-render of frame
+    RELOC_FRAME must relocalize within 0.1 m, launching hamming_top2 from
+    reloc_attempt (that call is replayed with the plain version); the map
+    must not grow.  Last, phase 14's windowed engine in localization mode
+    tracks one window and must insert no keyframe."""
+    from orbslam2_tpu_torch.models import vocabulary as voc_mod
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     reset_launch_counts)
+    from orbslam2_tpu_torch.runtime import tracking
+    from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = eng.cfg
+    lc = LoopCloser(cfg, voc_mod.default_vocabulary(
+        k=cfg.capacity.vocab_k, levels=cfg.capacity.vocab_levels),
+        eng.device)
+    for kf in torch.nonzero(eng.ms.kf_valid).flatten().tolist():
+        lc.add_keyframe(eng.ms, kf)
+    eng.loop_closer = lc
+    eng.localization_only = True
+
+    def map_size():
+        return (eng.n_kfs, eng.stats["kf_inserted"],
+                int(eng.ms.kf_valid.sum()), int(eng.ms.mp_valid.sum()))
+
+    size0 = map_size()
+    body, vo = eng.fns.track_loc_body, []
+
+    def counted(*args):
+        res = body(*args)
+        vo.append(float(res.summary[39]) < 10)
+        return res
+
+    eng.fns = eng.fns._replace(track_loc_body=counted)
+    nxt = synthetic.straight_trajectory(N_FRAMES + LOC_NEXT,
+                                        step=0.25)[N_FRAMES:]
+    frames = render_rgbd(world, cfg.camera, nxt, rng)
+    reset_launch_counts()              # the localization path's count
+    est, frame_ms = [], []
+    for i, (gray, depth) in enumerate(frames):
+        t0 = time.perf_counter()
+        est.append(eng.track_rgbd(gray, depth, 0.1 * (N_FRAMES + i)))
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+    eng.fns = eng.fns._replace(track_loc_body=body)
+    n_tracked = sum(T is not None for T in est)
+    err = ate(est, nxt) if n_tracked else float("nan")
+
+    T_back = poses_gt[RELOC_FRAME]
+    gray, depth = render_rgbd(world, cfg.camera, [T_back], rng)[0]
+    eng.state = tracking.LOST
+    eng.velocity = None
+    attempt, calls = lc.fns.reloc_attempt, []
+
+    def recorded(*args):
+        calls.append((args, args[-1].get_state()))
+        return attempt(*args)
+
+    lc.fns = lc.fns._replace(reloc_attempt=recorded)
+    try:
+        Tcw = eng.track_rgbd(gray, depth, 99.0)
+        torch.cuda.synchronize()
+    finally:
+        lc.fns = lc.fns._replace(reloc_attempt=attempt)
+    by_site = dict(hamming_top2.launches_by_site)
+    if Tcw is None:
+        raise AssertionError("localization: the engine did not relocalize")
+    d = float(np.linalg.norm(-Tcw[:3, :3].T @ Tcw[:3, 3]
+                             + T_back[:3, :3].T @ T_back[:3, 3]))
+    grew = map_size() != size0
+
+    # the windowed engine: one window in localization mode
+    kf0, n0 = win["eng"].stats["kf_inserted"], win["eng"].n_kfs
+    win["eng"].localization_only = True
+    track, windows = win["eng"].f_track_window, []
+    win["eng"].f_track_window = lambda *a: windows.append(1) or track(*a)
+    for i in range(RGBD_FRAMES, RGBD_FRAMES + 4):
+        win["eng"].track_rgbd(*win["frames"][i], i / 30.0)
+    win["eng"].flush()
+    torch.cuda.synchronize()
+    win["eng"].f_track_window = track
+    win_est = win["eng"].frame_poses()[RGBD_FRAMES:]
+    win_ok = (win["eng"].stats["kf_inserted"] == kf0
+              and win["eng"].n_kfs == n0 and len(windows) == 1)
+    print(f"[localization] {LOC_NEXT} corridor frames past the map: "
+          f"tracked {n_tracked}, {sum(vo)} in VO mode, ATE {err:.4f} m, "
+          f"median {np.median(frame_ms):.1f} ms/frame; LOST → relocalized "
+          f"on a re-render of frame {RELOC_FRAME}: centre error {d:.4f} m; "
+          f"map (live KFs, KFs inserted, KF slots, points) {size0} → "
+          f"{map_size()}; windowed engine, one window: KFs inserted "
+          f"{kf0} → {win['eng'].stats['kf_inserted']}, ATE "
+          f"{ate(win_est, win['poses'][RGBD_FRAMES:]):.4f} m; hamming_top2 "
+          f"launches by path {by_site} ({smi})", flush=True)
+    if grew:
+        raise AssertionError(f"localization: the map grew {size0} → "
+                             f"{map_size()}")
+    if not d < 0.1:
+        raise AssertionError(f"localization: centre error {d} m")
+    if by_site.get("reloc_attempt", 0) < 1:
+        raise AssertionError("localization: reloc_attempt never launched "
+                             "hamming_top2")
+    if not win_ok:
+        raise AssertionError("localization: the windowed engine inserted "
+                             "a keyframe or tracked no window")
+    live_reloc_call(eng, attempt, *calls[-1])
+    return by_site, {"vo_frames": sum(vo), "tracked": n_tracked}
+
+
+def phase_gba_solvers(smi):
+    """Phase 16: one GBA chunk (5 robust LM iterations) on an RGB-D map of
+    the default CapacityConfig() (512 keyframe slots, 32,768 points; the
+    first GBA_FRAMES corridor frames), its keyframes (but the gauge) and
+    points perturbed from a seeded generator so that the chunk has work
+    to do: through the CG solver (gba_chunk's choice past 256 slots), then
+    forced through the dense Schur solve (the port's path before CG).
+    Each is run once warm-up and once timed (CUDA events), with its peak
+    device memory.  Poses agree within 1e-4, points nearer than 20 m from
+    the gauge camera within 1e-3 m, all within 2e-2 of their range (far
+    stereo depth is barely observed).  Then one CG solve is profiled at 8
+    and 16 steps: kernels and device ms per CG step."""
+    from orbslam2_tpu_torch.config import CapacityConfig
+    from orbslam2_tpu_torch.ops import bundle
+    from orbslam2_tpu_torch.runtime import gba
+    from orbslam2_tpu_torch.runtime.slam import SlamEngine
+    from orbslam2_tpu_torch.utils import lie, synthetic
+
+    cfg = rgbd_config(CapacityConfig())
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    poses_gt = synthetic.straight_trajectory(GBA_FRAMES, step=0.25)
+    eng = SlamEngine(cfg, enable_loop_closing=False)
+    for i, (gray, depth) in enumerate(render_rgbd(world, cfg.camera,
+                                                  poses_gt, rng)):
+        if eng.track_rgbd(gray, depth, 0.1 * i) is None:
+            raise AssertionError(f"gba: lost at frame {i}")
+    ms, dev = eng.ms, eng.device
+    K, N, P = ms.K, ms.N, ms.P
+    g = torch.Generator(device=dev).manual_seed(1)
+    moved = ms.kf_valid.clone()
+    moved[0] = False
+    xi = torch.randn(K, 6, device=dev, generator=g) * torch.tensor(
+        [0.01] * 3 + [0.05] * 3, device=dev)
+    ms = ms._replace(
+        kf_pose=torch.where(moved[:, None, None],
+                            lie.se3_exp(xi) @ ms.kf_pose, ms.kf_pose),
+        mp_pos=ms.mp_pos + 0.05 * torch.randn(
+            ms.mp_pos.shape, device=dev, generator=g)
+        * ms.mp_valid[:, None])
+    obs = torch.ones(K * N, dtype=torch.bool, device=dev)
+    chunk, _ = gba.make_gba_fns(cfg)
+    ba = bundle.bundle_adjust
+
+    def run(solver):
+        if solver == "dense":
+            bundle.bundle_adjust = lambda *a, **k: ba(*a, **{**k,
+                                                           "solver": "dense"})
+        try:
+            chunk(ms, obs, True)                       # warm-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out, _ = chunk(ms, obs, True)
+            b.record()
+            b.synchronize()
+        finally:
+            bundle.bundle_adjust = ba
+        return (out, a.elapsed_time(b),
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+    solves = []
+    cg_solve = bundle._schur_solve_cg
+
+    def counting(*args):
+        solves.append(1)
+        return cg_solve(*args)
+
+    bundle._schur_solve_cg = counting
+    try:
+        out_cg, ms_cg, gib_cg = run("cg")
+    finally:
+        bundle._schur_solve_cg = cg_solve
+    n_solves = len(solves) // 2                  # warm-up and timed
+    out_d, ms_d, gib_d = run("dense")
+    kv, pv = ms.kf_valid, ms.mp_valid
+    pose_gap = float(torch.max(torch.abs(out_cg.kf_pose[kv]
+                                         - out_d.kf_pose[kv])))
+    c0 = lie.se3_inv(ms.kf_pose[0])[:3, 3]
+    xc, xd = out_cg.mp_pos[pv], out_d.mp_pos[pv]
+    gap = torch.linalg.norm(xc - xd, dim=1)
+    rng_m = torch.linalg.norm(xd - c0, dim=1)
+    near = rng_m < cfg.camera.th_depth * cfg.camera.baseline
+    near_gap = float(gap[near].max()) if bool(near.any()) else 0.0
+    rel_gap = float((gap / rng_m).max())
+
+    per_step, top = {}, []
+
+    def probe(*args):
+        if not per_step:
+            for n in (8, 16):
+                k, dev_ms, _ = _profiled(
+                    lambda: cg_solve(*args[:-1], n))
+                per_step[n] = (k, dev_ms)
+            top.extend(_top_kernels(lambda: cg_solve(*args[:-1], 16)))
+        return cg_solve(*args)
+
+    bundle._schur_solve_cg = probe
+    try:
+        chunk(ms, obs, True)
+    finally:
+        bundle._schur_solve_cg = cg_solve
+    k_step = (per_step[16][0] - per_step[8][0]) / 8
+    ms_step = (per_step[16][1] - per_step[8][1]) / 8
+    print(f"[gba] one robust chunk at {K} KF slots ({int(kv.sum())} live), "
+          f"{P} point slots ({int(pv.sum())} live), {K * N} observation "
+          f"rows: CG {ms_cg:.1f} ms, peak +{gib_cg:.3f} GiB ({n_solves} "
+          f"CG solves of 48 steps); dense {ms_d:.1f} ms, peak +{gib_d:.3f} "
+          f"GiB; |Δpose| {pose_gap:.2e}, points nearer than 20 m "
+          f"|Δ| {near_gap:.2e} m ({int(near.sum())}), all |Δ|/range "
+          f"{rel_gap:.2e}; a CG step: {k_step:.1f} kernels, {ms_step:.4f} "
+          f"ms of device time (torch.profiler, 16 vs 8 steps); a 16-step "
+          f"solve's top kernels by device ms {top} ({smi})", flush=True)
+    if not solves:
+        raise AssertionError("gba: the chunk did not take the CG solver")
+    if not (pose_gap < 1e-4 and near_gap < 1e-3 and rel_gap < 2e-2):
+        raise AssertionError(f"gba: CG and dense differ: poses {pose_gap}, "
+                             f"near points {near_gap} m, relative "
+                             f"{rel_gap}")
+    return {"cg_ms": ms_cg, "dense_ms": ms_d, "cg_gib": gib_cg,
+            "dense_gib": gib_d, "kernels_per_cg_step": k_step,
+            "device_ms_per_cg_step": ms_step}
+
+
 def main():
     smi = phase_device()
     phase_build(smi)
     max_err, main_inputs = phase_kernels(smi)
-    eng, engine_launches, slice_sites = phase_slice(smi)
+    eng, engine_launches, slice_sites, corridor = phase_slice(smi)
     phase_live_call(eng, engine_launches)
     del eng
     eng, poses_gt, scene, rng, loop_sites = phase_loop(smi)
@@ -942,21 +1358,35 @@ def main():
     phase_warm_loop_layers(eng, res, smi)
     reloc_sites = phase_reloc(eng, poses_gt, scene, rng, smi)
     del eng
-    windowed_sites = phase_windowed_fallback(smi)
+    windowed_sites = phase_windowed_fallback(smi, corridor)
+    del corridor
     eng, frames, poses_gt, bench_sites, slam = phase_bench_slam(smi)
     loc_sites, loc = phase_bench_loc(eng, frames, poses_gt, smi)
     del eng, frames
+    eng, world, rng, poses_gt, rgbd_sites = phase_rgbd_slice(smi)
+    weng, wframes, wposes, bench_rgbd_sites, rgbd = phase_bench_rgbd(smi)
+    localization_sites, _ = phase_localization(
+        eng, world, rng, poses_gt,
+        {"eng": weng, "frames": wframes, "poses": wposes}, smi)
+    del eng, weng, wframes
+    gba_times = phase_gba_solvers(smi)
     k = phase_kernel_times(smi, main_inputs)
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
                "reloc (phase 8)": reloc_sites,
                "windowed (phase 10)": windowed_sites,
                "bench SLAM (phase 11)": bench_sites,
-               "bench LOC (phase 12)": loc_sites}
+               "bench LOC (phase 12)": loc_sites,
+               "RGB-D slice (phase 13)": rgbd_sites,
+               "bench RGB-D (phase 14)": bench_rgbd_sites,
+               "localization (phase 15)": localization_sites}
     print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
           f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
-          f"(median of {[round(f, 3) for f in loc['pass_fps']]}) ({smi})",
-          flush=True)
+          f"(median of {[round(f, 3) for f in loc['pass_fps']]}); RGB-D "
+          f"SLAM {rgbd['rgbd_fps']:.3f} fps, ATE {rgbd['ate_m']:.4f} m; GBA "
+          f"chunk at 512 KF slots: CG {gba_times['cg_ms']:.1f} ms / "
+          f"{gba_times['cg_gib']:.3f} GiB, dense {gba_times['dense_ms']:.1f} "
+          f"ms / {gba_times['dense_gib']:.3f} GiB ({smi})", flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

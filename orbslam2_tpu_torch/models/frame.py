@@ -1,9 +1,10 @@
 """Per-frame data: the tensor analogue of ``Frame``.
 
-Port of ``orbslam2_tpu/models/frame.py`` (stereo frontend; the RGB-D and
-mono frontends wait for their ROADMAP items).  The JAX version vmaps the
-extractor over the L/R pair; here the pair is a two-iteration loop, and
-each image's pyramid is built once and shared by extraction and stereo.
+Port of ``orbslam2_tpu/models/frame.py``: the stereo and RGB-D
+frontends (the mono frontend waits for its ROADMAP item).  The JAX
+version vmaps the extractor over the L/R pair; here the pair is a
+two-iteration loop, and each image's pyramid is built once and shared by
+extraction and stereo.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from orbslam2_tpu_torch.config import SlamConfig
+from orbslam2_tpu_torch.config import RGBD, SlamConfig
 from orbslam2_tpu_torch.ops import extractor, image as image_ops
 from orbslam2_tpu_torch.ops import stereo as stereo_ops
 from orbslam2_tpu_torch.utils import camera as cam_mod
@@ -54,3 +55,31 @@ def make_frontend_stereo(cfg: SlamConfig):
                          desc=fl.desc, ur=sm.u_right, depth=sm.depth)
 
     return frontend
+
+
+def make_frontend_rgbd(cfg: SlamConfig):
+    """(gray, depth) float32 [H, W] tensors → FrameData (RGB-D Frame ctor,
+    Frame.cc:120): depth in the camera's units, read at the raw
+    keypoints."""
+    cam = cam_mod.Camera.from_config(cfg.camera)
+    orb = cfg.orb
+
+    def frontend(gray: torch.Tensor, depth_map: torch.Tensor) -> FrameData:
+        pyr = image_ops.build_pyramid(gray, orb.n_levels, orb.scale_factor)
+        f = extractor.extract(pyr, orb)
+        sm = stereo_ops.depth_from_rgbd(f, depth_map, cfg.camera.bf)
+        xy_und = (cam_mod.undistort_points(cam, f.xy)
+                  if cfg.camera.has_distortion else f.xy)
+        return FrameData(xy=xy_und, xy_raw=f.xy, level=f.level,
+                         angle=f.angle, response=f.response, valid=f.valid,
+                         desc=f.desc, ur=sm.u_right, depth=sm.depth)
+
+    return frontend
+
+
+def make_frontend(cfg: SlamConfig):
+    """The sensor's frontend: called with a (left, right) pair for stereo,
+    a (gray, depth) pair for RGB-D."""
+    if cfg.sensor == RGBD:
+        return make_frontend_rgbd(cfg)
+    return make_frontend_stereo(cfg)

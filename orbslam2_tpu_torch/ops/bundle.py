@@ -1,15 +1,27 @@
-"""Bundle adjustment: Levenberg-Marquardt with a dense Schur complement.
+"""Bundle adjustment: Levenberg-Marquardt on the Schur complement.
 
-Port of ``orbslam2_tpu/ops/bundle.py``, dense path (local BA): batched
-residuals/Jacobians, block normal equations by segment sums
-(``index_add_`` — not the JAX version's one-hot matmuls, which exist for
-the TPU's matrix unit), the reduced camera system Jacobi-preconditioned
-and solved by FP32 Cholesky, landmarks back-substituted.  Schedule:
-5 robust (Huber) iterations, outlier classification, 10 plain ones,
-final classification.  The JAX ``scan``/``cond`` pair becomes a Python
-loop: an accepted step re-linearises, a rejected one keeps the carried
-system with a larger λ, and the loop stops at the JAX ``done`` flag.
-The matrix-free CG path (global BA) waits for its ROADMAP item.
+Port of ``orbslam2_tpu/ops/bundle.py`` (single device): batched
+residuals/Jacobians and block normal equations by segment sums
+(``index.scatter_add``, sorted on CUDA so that the sums do not change
+from run to run, with the zero rows of invalid observations dropped —
+not the JAX version's one-hot matmuls, which exist for the TPU's matrix
+unit).  Two solvers for the reduced camera system:
+
+  * ``"dense"`` (local BA): the camera-point coupling as [P, C, 6, 3],
+    the Schur complement materialised, Jacobi-preconditioned and solved
+    by FP32 Cholesky;
+  * ``"cg"`` (global BA): matrix-free conjugate gradient.  The coupling
+    stays per observation ([O, 6, 3]), each Schur product is two segment
+    sums, the preconditioner is the exact 6×6 block diagonal, and the
+    ``cg_iters`` steps read nothing back to the host.  No [P, C, …]
+    object is built.
+
+Landmarks are back-substituted.  Schedule: 5 robust (Huber) iterations,
+outlier classification, 10 plain ones, final classification.  The JAX
+``scan``/``cond`` pair becomes a Python loop: an accepted step
+re-linearises, a rejected one keeps the carried system with a larger λ,
+and the loop stops at the JAX ``done`` flag.  The mesh path
+(``axis_name``) is not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import torch
 from orbslam2_tpu_torch.ops.pose_opt import CHI2_MONO, CHI2_STEREO
 from orbslam2_tpu_torch.utils import camera as cam_mod
 from orbslam2_tpu_torch.utils import lie
+from orbslam2_tpu_torch.utils.index import scatter_add
 
 
 class BAProblem(NamedTuple):
@@ -52,6 +65,11 @@ def _outer_acc(a, b):
 
 def _tmatvec(a, e):
     return torch.sum(a * e[..., None], dim=-2)
+
+
+def _vecmat(v, m):
+    """[..., k] × [..., k, j] → [..., j]  (= mᵀ v batched)."""
+    return torch.sum(v[..., :, None] * m, dim=-2)
 
 
 def _project_residuals(cam, poses, points, prob):
@@ -102,11 +120,12 @@ def _chi2_of(e, is_stereo, inv_sigma2):
     return sq, torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
 
 
-def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int
-                 ) -> torch.Tensor:
-    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                      device=vals.device)
-    return out.index_add_(0, seg, vals)
+def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int,
+                 ok: torch.Tensor) -> torch.Tensor:
+    """[O, ...] rows summed into [n, ...] by ``seg``, rows with ``ok``
+    False dropped."""
+    return scatter_add(vals.new_zeros((n,) + tuple(vals.shape[1:])), seg,
+                       vals, ok)
 
 
 LAM0 = 1e-4   # initial LM damping
@@ -114,15 +133,26 @@ LAM0 = 1e-4   # initial LM damping
 
 def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, n_free: int,
                   iters_a: int = 5, iters_b: int = 10,
-                  fix_first_free: bool = False
+                  fix_first_free: bool = False, solver: str = "dense",
+                  cg_iters: int = 48
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Two-stage LM schedule.  ``fix_first_free`` also freezes camera 0
-    (the global-BA gauge).  Returns (poses, points, obs_inlier)."""
+    (the global-BA gauge).  ``solver`` is ``"dense"`` or ``"cg"`` (see
+    the module docstring).  Returns (poses, points, obs_inlier)."""
+    if solver not in ("dense", "cg"):
+        raise ValueError(f"bundle_adjust: unknown solver {solver!r}")
     C = n_free
     P = prob.points.shape[0]
     dtype, dev = prob.poses.dtype, prob.poses.device
-    cam_slot = torch.where(prob.cam_i < C, prob.cam_i, C)   # C = dump slot
     pt_i = prob.pt_i
+    # an invalid observation's rows carry weight 0: dropped from the sums
+    cam_ok = prob.valid & (prob.cam_i < C)       # rows of free cameras
+
+    def to_cams(vals):                           # [O, ...] → [C, ...]
+        return _segment_sum(vals, prob.cam_i, C, cam_ok)
+
+    def to_pts(vals):                            # [O, ...] → [P, ...]
+        return _segment_sum(vals, pt_i, P, prob.valid)
     delta_m = torch.sqrt(torch.tensor(CHI2_MONO)).item()
     delta_s = torch.sqrt(torch.tensor(CHI2_STEREO)).item()
 
@@ -149,13 +179,20 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, n_free: int,
                 w = w * torch.where(r > d, d / r, 1.0)
             Jc_w = Jc * w[:, None, None]
             Jp_w = Jp * w[:, None, None]
-            Hcc = _segment_sum(_outer_acc(Jc_w, Jc), cam_slot, C + 1)[:C]
-            g_c = _segment_sum(_tmatvec(Jc_w, e), cam_slot, C + 1)[:C]
-            Hpp = _segment_sum(_outer_acc(Jp_w, Jp), pt_i, P)
-            g_p = _segment_sum(_tmatvec(Jp_w, e), pt_i, P)
-            coup = _segment_sum(_outer_acc(Jc_w, Jp), pt_i * (C + 1)
-                                + cam_slot, P * (C + 1))
-            coup = coup.reshape(P, C + 1, 6, 3)[:, :C]
+            Hcc = to_cams(_outer_acc(Jc_w, Jc))
+            g_c = to_cams(_tmatvec(Jc_w, e))
+            Hpp = to_pts(_outer_acc(Jp_w, Jp))
+            g_p = to_pts(_tmatvec(Jp_w, e))
+            a_obs = _outer_acc(Jc_w, Jp)                       # [O, 6, 3]
+            if solver == "dense":
+                coup = _segment_sum(a_obs, pt_i * C + prob.cam_i, P * C,
+                                    cam_ok).reshape(P, C, 6, 3)
+            else:
+                # per-observation blocks, masked to free cameras
+                free_obs = prob.cam_i < C
+                if fix_first_free:
+                    free_obs = free_obs & (prob.cam_i != 0)
+                coup = a_obs * free_obs[:, None, None].to(dtype)
             return (Hcc, Hpp, g_c, g_p, coup), rho_total(e, is_s)
 
         def solve(blocks, lam):
@@ -164,8 +201,12 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, n_free: int,
             eye6 = torch.eye(6, dtype=dtype, device=dev)
             Hpp_d = Hpp + (lam * _trace_mean(Hpp) + 1e-6) * eye3
             Hcc_d = Hcc + (lam * _trace_mean(Hcc) + 1e-6) * eye6
-            return _schur_solve_dense(coup, Hcc_d, inv3x3(Hpp_d), g_c, g_p,
-                                      C, P, fix_first_free)
+            if solver == "dense":
+                return _schur_solve_dense(coup, Hcc_d, inv3x3(Hpp_d), g_c,
+                                          g_p, C, P, fix_first_free)
+            return _schur_solve_cg(coup, Hcc_d, inv3x3(Hpp_d), g_c, g_p,
+                                   prob, C, to_cams, to_pts, fix_first_free,
+                                   cg_iters)
 
         if n_iters == 0:      # a stage of length 0 (a GBA chunk's half)
             return poses, points
@@ -230,6 +271,80 @@ def _schur_solve_dense(Ucp, Hcc_d, Hpp_inv, g_c, g_p, C, P, fix_first_free):
     Ut_dc = torch.sum(Ucp * dc_blocks[None, :, :, None], dim=(1, 2))
     dp = _matvec(Hpp_inv, -g_p - Ut_dc)
     return dc_blocks, dp
+
+
+def _schur_solve_cg(a_obs, Hcc_d, Hpp_inv, g_c, g_p, prob: BAProblem, C,
+                    to_cams, to_pts, fix_first_free, cg_iters):
+    """Matrix-free PCG on the Schur complement (global-BA path).
+
+    ``a_obs`` [O, 6, 3] holds each observation's coupling block
+    a_o = Jc_oᵀ W_o Jp_o, zero for fixed cameras; S·x = Hcc·x − U Hpp⁻¹ Uᵀ x
+    is a gather to points, a 3×3 solve and a scatter to cameras
+    (``to_pts`` / ``to_cams``: the segment sums).  The preconditioner is
+    the exact 6×6 block diagonal of S.  The loop runs
+    ``cg_iters`` steps with no host read; ``torch.where`` guards the
+    divisions as JAX's ``jnp.where`` does."""
+    dtype, dev = Hcc_d.dtype, Hcc_d.device
+    pt_i = prob.pt_i
+    cam_g = torch.where(prob.cam_i < C, prob.cam_i, 0)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    tiny = torch.tensor(1e-20, dtype=dtype, device=dev)
+
+    def schur_matvec(x):                                  # x: [C, 6]
+        y = to_pts(_vecmat(x[cam_g], a_obs))                  # Uᵀ x
+        z = _matvec(Hpp_inv, y)                               # Hpp⁻¹ Uᵀ x
+        Sx = _matvec(Hcc_d, x) - to_cams(_matvec(a_obs, z[pt_i]))
+        if fix_first_free:
+            Sx = torch.cat([x[:1], Sx[1:]])
+        return Sx
+
+    # rhs = −(g_c − U Hpp⁻¹ g_p)
+    zp = _matvec(Hpp_inv, g_p)
+    rhs = -(g_c - to_cams(_matvec(a_obs, zp[pt_i])))
+    diag_obs = _bmm(_bmm(a_obs, Hpp_inv[pt_i]), a_obs.transpose(-1, -2))
+    diagS = Hcc_d - to_cams(diag_obs)
+    if fix_first_free:
+        rhs = torch.cat([torch.zeros_like(rhs[:1]), rhs[1:]])
+        diagS = torch.cat([eye6[None], diagS[1:]])
+    Minv = _inv6x6(diagS + 1e-6 * eye6)
+
+    def guard(v):
+        return torch.where(torch.abs(v) < 1e-20, tiny, v)
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = _matvec(Minv, r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(cg_iters):
+        Ap = schur_matvec(p)
+        alpha = rz / guard(torch.sum(p * Ap))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = _matvec(Minv, r)
+        rz_new = torch.sum(r * z)
+        p = z + (rz_new / guard(rz)) * p
+        rz = rz_new
+
+    # back-substitute landmarks through the same per-observation blocks
+    Ut_dc = to_pts(_vecmat(x[cam_g], a_obs))
+    dp = _matvec(Hpp_inv, -g_p - Ut_dc)
+    return x, dp
+
+
+def _inv6x6(A: torch.Tensor) -> torch.Tensor:
+    """Batched 6×6 SPD inverse by 2×2 block inversion over 3×3 blocks
+    (JAX's form: no LU, no host check)."""
+    A11, A12 = A[..., :3, :3], A[..., :3, 3:]
+    A21, A22 = A[..., 3:, :3], A[..., 3:, 3:]
+    A11i = inv3x3(A11)
+    A21_A11i = _bmm(A21, A11i)
+    S22i = inv3x3(A22 - _bmm(A21_A11i, A12))
+    B12 = -_bmm(_bmm(A11i, A12), S22i)
+    B11 = A11i - _bmm(B12, A21_A11i)
+    B21 = -_bmm(S22i, A21_A11i)
+    return torch.cat([torch.cat([B11, B12], dim=-1),
+                      torch.cat([B21, S22i], dim=-1)], dim=-2)
 
 
 def _trace_mean(H: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ Where the JAX version applies JᵀJ matrix-free through ``jax.linearize``
 and ``jax.vjp``, the port takes each edge's two 7×7 Jacobian blocks once
 per step by forward-mode autodiff (``torch.func.jvp`` over the 14 tangent
 directions): J·v is then a gather and a batched 7×7 product, Jᵀ·u two
-``index_add_``.  It is the same linear map.  The residual is evaluated
+segment sums (``index.scatter_add``, dead edges dropped).  It is the same linear map.  The residual is evaluated
 batched over edges, never per edge: forward mode through a 0-dim tensor
 times a Python float yields float64 tangents in torch 2.x.  Both loop
 counts are fixed and nothing inside them is read back to the host.
@@ -24,6 +24,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from orbslam2_tpu_torch.utils import lie
+from orbslam2_tpu_torch.utils.index import scatter_add
 
 
 class PoseGraphProblem(NamedTuple):
@@ -88,9 +89,10 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20,
     live = (w > 0)[:, None]
     zeros = torch.zeros((E, 7), dtype=dtype, device=dev)
 
-    def JT(u_i, u_j):
+    def JT(u_i, u_j):       # dead edges' rows are zero: dropped
         out = torch.zeros((K, 7), dtype=dtype, device=dev)
-        return out.index_add_(0, e_i, u_i).index_add_(0, e_j, u_j)
+        return scatter_add(scatter_add(out, e_i, u_i, live[:, 0]), e_j, u_j,
+                           live[:, 0])
 
     s, R, t = prob.s, prob.R, prob.t
     for _ in range(n_iters):

@@ -1,4 +1,5 @@
-"""Stereo depth association: left↔right matching + SAD sub-pixel.
+"""Stereo depth association: left↔right matching + SAD sub-pixel, and
+the RGB-D depth lookup.
 
 Port of ``orbslam2_tpu/ops/stereo.py``: row-band / level / disparity
 gates over one dense masked Hamming matrix, then SAD refinement on each
@@ -17,6 +18,7 @@ import torch
 from orbslam2_tpu_torch.ops import hamming
 from orbslam2_tpu_torch.ops.extractor import Features
 from orbslam2_tpu_torch.ops.matching import TH_HIGH, TH_LOW, best_and_second
+from orbslam2_tpu_torch.utils.index import gather_clamped
 
 SAD_W = 5      # half window (11×11 patches)
 SAD_L = 5      # slide range ±5
@@ -136,3 +138,20 @@ def match_stereo(feats_l: Features, feats_r: Features,
     neg = torch.full_like(u_right, -1.0)
     return StereoMatches(u_right=torch.where(ok, u_right, neg),
                          depth=torch.where(ok, bf / disparity_c, neg))
+
+
+def depth_from_rgbd(feats: Features, depth_map: torch.Tensor,
+                    bf: float) -> StereoMatches:
+    """Frame::ComputeStereoFromRGBD (Frame.cc:645): the depth image read
+    at each raw keypoint (coordinates rounded half to even, as
+    ``jnp.round`` and ``torch.round`` both do, then indexed as JAX's
+    clipped gather does: ``index.gather_clamped``), and the virtual right
+    coordinate ``x − bf / d``.  The JAX frontend passes depth_factor 1."""
+    x = torch.round(feats.xy[:, 0])
+    y = torch.round(feats.xy[:, 1])
+    d = gather_clamped(depth_map, y, x).to(torch.float32)
+    ok = (d > 0) & feats.valid
+    neg = torch.full_like(d, -1.0)
+    u_right = feats.xy[:, 0] - bf / torch.clamp(d, min=1e-9)
+    return StereoMatches(u_right=torch.where(ok, u_right, neg),
+                         depth=torch.where(ok, d, neg))

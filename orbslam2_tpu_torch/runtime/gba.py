@@ -5,8 +5,11 @@ LoopClosing::RunGlobalBundleAdjustment runs on a Python thread over an
 immutable map snapshot — every map update in the package returns new
 tensors, so nothing the engine does later writes into it.  The solve runs
 in chunks of 5 LM iterations (robust first, plain after, on the surviving
-inliers) through the dense-Schur ``bundle_adjust(fix_first_free=True)``,
-with the abort flag checked between chunks.  ``merge`` applies a finished
+inliers) through ``bundle_adjust(fix_first_free=True)``, with the abort
+flag checked between chunks.  Up to 256 keyframe slots a chunk solves the
+reduced camera system densely; past that it takes the matrix-free CG
+solver, as the JAX version does (``gba.py:99``), because the dense
+coupling grows as P·K.  ``merge`` applies a finished
 result to the CURRENT map: snapshot keyframes still alive under the same
 identity take their optimized poses, keyframes born during the GBA are
 rebased through their spanning-tree parents over PROPAGATE_DEPTH steps,
@@ -44,38 +47,50 @@ class GbaResult(NamedTuple):
     new_points: torch.Tensor         # [P, 3] optimized
 
 
+def full_map_problem(cfg: SlamConfig, ms: M.MapState,
+                     obs_ok: torch.Tensor) -> bundle.BAProblem:
+    """Every keyframe slot a camera, every point a landmark, observation
+    (k, n) taking part where ``obs_ok`` [K, N] holds."""
+    K, N, dev = ms.K, ms.N, ms.kf_xy.device
+    sigma2 = np.array([cfg.orb.scale_factor ** (2 * l)
+                       for l in range(cfg.orb.n_levels)], np.float32)
+    inv_sigma2 = torch.as_tensor((1.0 / sigma2).astype(np.float32),
+                                 device=dev)
+    cam_i = torch.arange(K, device=dev)[:, None].expand(K, N)
+    return bundle.BAProblem(
+        poses=ms.kf_pose, points=ms.mp_pos, point_valid=ms.mp_valid,
+        cam_i=cam_i.reshape(-1),
+        pt_i=torch.where(obs_ok, ms.kf_mp, 0).long().reshape(-1),
+        uv=ms.kf_xy.reshape(-1, 2), ur=ms.kf_ur.reshape(-1),
+        inv_sigma2=inv_sigma2[ms.kf_level.long()].reshape(-1),
+        valid=obs_ok.reshape(-1))
+
+
+def with_ba_result(ms: M.MapState, poses, points) -> M.MapState:
+    """Live keyframes and points take the optimized values."""
+    return ms._replace(
+        kf_pose=torch.where(ms.kf_valid[:, None, None], poses, ms.kf_pose),
+        mp_pos=torch.where(ms.mp_valid[:, None], points, ms.mp_pos))
+
+
 def make_gba_fns(cfg: SlamConfig):
     """(gba_chunk, merge) for one config."""
     cam = cam_mod.Camera.from_config(cfg.camera)
-    sigma2 = np.array([cfg.orb.scale_factor ** (2 * l)
-                       for l in range(cfg.orb.n_levels)], np.float32)
-    inv_sigma2 = (1.0 / sigma2).astype(np.float32)
 
     def gba_chunk(ms: M.MapState, obs_w: torch.Tensor, use_huber: bool
                   ) -> Tuple[M.MapState, torch.Tensor]:
-        """5 LM iterations of full-map dense-Schur BA (robust when
-        ``use_huber``); returns the updated snapshot and the post-chunk
-        inlier mask [K·N], the next chunk's weights."""
-        K, N, dev = ms.K, ms.N, ms.kf_xy.device
-        obs_ok = M.kf_obs_ok(ms) & obs_w.reshape(K, N)
-        cam_i = torch.arange(K, device=dev)[:, None].expand(K, N)
-        prob = bundle.BAProblem(
-            poses=ms.kf_pose, points=ms.mp_pos, point_valid=ms.mp_valid,
-            cam_i=cam_i.reshape(-1),
-            pt_i=torch.where(obs_ok, ms.kf_mp, 0).long().reshape(-1),
-            uv=ms.kf_xy.reshape(-1, 2), ur=ms.kf_ur.reshape(-1),
-            inv_sigma2=torch.as_tensor(inv_sigma2, device=dev)[
-                ms.kf_level.long()].reshape(-1),
-            valid=obs_ok.reshape(-1))
+        """5 LM iterations of full-map Schur BA (robust when
+        ``use_huber``; dense up to 256 keyframe slots, CG past that);
+        returns the updated snapshot and the post-chunk inlier mask
+        [K·N], the next chunk's weights."""
+        K = ms.K
+        prob = full_map_problem(
+            cfg, ms, M.kf_obs_ok(ms) & obs_w.reshape(K, ms.N))
         iters = (5, 0) if use_huber else (0, 5)
         poses, points, inlier = bundle.bundle_adjust(
             cam, prob, n_free=K, iters_a=iters[0], iters_b=iters[1],
-            fix_first_free=True)
-        ms = ms._replace(
-            kf_pose=torch.where(ms.kf_valid[:, None, None], poses,
-                                ms.kf_pose),
-            mp_pos=torch.where(ms.mp_valid[:, None], points, ms.mp_pos))
-        return ms, inlier
+            fix_first_free=True, solver="dense" if K <= 256 else "cg")
+        return with_ba_result(ms, poses, points), inlier
 
     def merge(ms: M.MapState, res: GbaResult) -> M.MapState:
         """Apply a finished GBA to the current map (LoopClosing.cc:

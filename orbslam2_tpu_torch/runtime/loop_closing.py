@@ -19,9 +19,10 @@ RANSAC, pose optimization and the two-stage projection rescue.
 
 The JAX ``lax.cond`` branches are host ``if``s on values read back from
 the device.  RANSAC draws come from the closer's ``torch.Generator``,
-seeded 42 as the JAX closer's ``PRNGKey(42)``.  Not ported: ``global_ba``
-(the CG solver; the engine never calls it), the JIT ``prewarm*`` and the
-mesh routing.
+seeded 42 as the JAX closer's ``PRNGKey(42)``.  ``global_ba`` is the
+one-shot full-map BA of RunGlobalBundleAdjustment through the CG solver
+(the engine runs the chunked background GBA of runtime/gba.py instead).
+Not ported: the JIT ``prewarm*`` and the mesh routing.
 """
 
 from __future__ import annotations
@@ -35,10 +36,11 @@ from orbslam2_tpu_torch.config import MONOCULAR, SlamConfig
 from orbslam2_tpu_torch.models import keyframe_db as db_mod
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.models.vocabulary import Vocabulary
-from orbslam2_tpu_torch.ops import (bow, matching, pnp, pose_graph, pose_opt,
-                                    sim3opt, sim3solver)
+from orbslam2_tpu_torch.ops import (bow, bundle, matching, pnp, pose_graph,
+                                    pose_opt, sim3opt, sim3solver)
 from orbslam2_tpu_torch.ops.hamming_top2 import launch_site
 from orbslam2_tpu_torch.runtime import device as device_mod
+from orbslam2_tpu_torch.runtime import gba as gba_mod
 from orbslam2_tpu_torch.runtime.gba import GbaManager
 from orbslam2_tpu_torch.runtime.local_mapping import (MIN_COVIS_WEIGHT,
                                                       fuse_points_into_kf)
@@ -61,6 +63,7 @@ class LoopFns(NamedTuple):
     recount_matches: object
     correct_loop: object
     fuse_after_loop: object
+    global_ba: object
     frame_bow_vector: object
     reloc_attempt: object
 
@@ -258,6 +261,16 @@ def make_loop_fns(cfg: SlamConfig, voc: Vocabulary) -> LoopFns:
         ms, n2 = fuse_points_into_kf(ms, kf_loop, cur_pts, cam, cfg)
         return ms, n1 + n2
 
+    def global_ba(ms: M.MapState) -> M.MapState:
+        """RunGlobalBundleAdjustment (LoopClosing.cc:679): every keyframe
+        free except the gauge anchor, every live point and observation,
+        5 robust + 5 plain LM iterations through the CG solver."""
+        poses, points, _ = bundle.bundle_adjust(
+            cam, gba_mod.full_map_problem(cfg, ms, M.kf_obs_ok(ms)),
+            n_free=K, iters_a=5, iters_b=5, fix_first_free=True,
+            solver="cg")
+        return gba_mod.with_ba_result(ms, poses, points)
+
     def frame_bow_vector(desc, valid):
         return bow.bow_vector(voc, desc, valid)
 
@@ -345,8 +358,8 @@ def make_loop_fns(cfg: SlamConfig, voc: Vocabulary) -> LoopFns:
         detect=detect, detect_step=detect_step,
         match_for_sim3=match_for_sim3, refine_sim3=refine_sim3,
         recount_matches=recount_matches, correct_loop=correct_loop,
-        fuse_after_loop=fuse_after_loop, frame_bow_vector=frame_bow_vector,
-        reloc_attempt=reloc_attempt)
+        fuse_after_loop=fuse_after_loop, global_ba=global_ba,
+        frame_bow_vector=frame_bow_vector, reloc_attempt=reloc_attempt)
 
 
 class LoopCloser:

@@ -1,18 +1,23 @@
 """Host-side SLAM engine: frontend + tracking + local mapping + loop
 closing.
 
-Port of ``orbslam2_tpu/runtime/slam.py`` for the stereo sensor: the
-Tracking::Track state machine (motion model, the ×2 widen retry, the
-TrackReferenceKeyFrame fallback, the keyframe decision, relocalization
-when LOST) on the host, all array work in tensors on ``device``.  With
-loop closing on (the default) every new keyframe goes through
-``LoopCloser.on_keyframe`` and a finished background global BA is merged
-after it; ``finish_gba`` drains the last one.  Keyframe and map-point rows
-are reused after culling; trajectory entries whose reference keyframe is
-culled are rebased onto its parent.
+Port of ``orbslam2_tpu/runtime/slam.py`` for the depth sensors (stereo
+and RGB-D): the Tracking::Track state machine (motion model, the ×2
+widen retry, the TrackReferenceKeyFrame fallback, the keyframe decision,
+relocalization when LOST) on the host, all array work in tensors on
+``device``.  With loop closing on (the default) every new keyframe goes
+through ``LoopCloser.on_keyframe`` and a finished background global BA
+is merged after it; ``finish_gba`` drains the last one.  Keyframe and
+map-point rows are reused after culling; trajectory entries whose
+reference keyframe is culled are rebased onto its parent.
 
-Not yet ported (each raises ``NotImplementedError`` naming the ROADMAP
-item): RGB-D and mono tracking, localization mode.
+Localization mode (``localization_only = True``) tracks against a map
+that does not grow: no keyframe decision, no auto-reset while LOST, and,
+once a frame has been tracked, temporal VO points from the previous
+frame's depth with a relocalization attempt on every VO-mode frame.
+
+Mono tracking is not ported yet and raises ``NotImplementedError``
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from orbslam2_tpu_torch.config import MONOCULAR, STEREO, SlamConfig
+from orbslam2_tpu_torch.config import MONOCULAR, SlamConfig
 from orbslam2_tpu_torch.models import frame as frame_mod
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.models import vocabulary as voc_mod
@@ -50,17 +55,18 @@ class TrajectoryEntry:
 
 
 class SlamEngine:
-    """Single-process stereo engine on one torch device: the CUDA card
-    unless ``device`` says otherwise (``device="cpu"`` for the CPU)."""
+    """Single-process stereo / RGB-D engine on one torch device: the CUDA
+    card unless ``device`` says otherwise (``device="cpu"`` for the
+    CPU)."""
 
     def __init__(self, cfg: SlamConfig, enable_loop_closing: bool = True,
                  device=None, vocabulary=None):
-        if cfg.sensor != STEREO:
-            raise _not_ported("RGB-D and mono tracking",
-                              "the RGB-D/mono frontends and ops/initializer")
+        if cfg.sensor == MONOCULAR:
+            raise _not_ported("monocular tracking",
+                              "mono, the frontend and ops/initializer")
         self.cfg = cfg
         self.device = device_mod.resolve(device)
-        self.frontend = frame_mod.make_frontend_stereo(cfg)
+        self.frontend = frame_mod.make_frontend(cfg)
         self.fns = tracking.make_tracking_fns(cfg)
         self.f_mapping_step = local_mapping.make_mapping_step(cfg)
         self.mapping_fns = local_mapping.MappingFns(cfg)
@@ -109,23 +115,32 @@ class SlamEngine:
 
         return up(left), up(right)
 
-    def track_rgbd(self, gray, depth, timestamp):
-        raise _not_ported("RGB-D tracking", "the RGB-D/mono frontends")
+    def track_rgbd(self, gray: np.ndarray, depth: np.ndarray,
+                   timestamp: float) -> Optional[np.ndarray]:
+        """One uint8 gray image and its registered float32 depth image
+        (the camera's units) → Tcw [4, 4] or None (lost)."""
+        return self._track_common(self._upload_rgbd(gray, depth), timestamp)
 
     def track_monocular(self, gray, timestamp):
         raise _not_ported("monocular tracking",
-                          "ops/initializer.py and the mono init")
+                          "mono, the frontend and ops/initializer")
+
+    def _upload_rgbd(self, gray: np.ndarray, depth: np.ndarray):
+        """uint8 gray → float32, depth kept float32 as given: a pair of
+        [H, W] tensors on the device."""
+        g = torch.from_numpy(np.ascontiguousarray(gray, dtype=np.uint8))
+        d = torch.from_numpy(np.ascontiguousarray(depth, dtype=np.float32))
+        return g.to(self.device).to(torch.float32), d.to(self.device)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
     # ------------------------------------------------------------ tracking
     def _track_common(self, pair, timestamp: float) -> Optional[np.ndarray]:
-        if self.localization_only:
-            raise _not_ported("localization mode",
-                              "track_loc_body and localization mode")
-        # LOST with ≤5 keyframes → full reset (Tracking.cc:571-580)
-        if self.state == tracking.LOST and self.n_kfs <= 5:
+        # LOST with ≤5 keyframes → full reset (Tracking.cc:571-580), not
+        # in localization mode
+        if (self.state == tracking.LOST and not self.localization_only
+                and self.n_kfs <= 5):
             self._auto_reset()
         if self.state in (tracking.NO_IMAGES_YET, tracking.NOT_INITIALIZED):
             fd = self.frontend(*pair)
@@ -140,6 +155,13 @@ class SlamEngine:
         ms = self.ms
         ref_at_track = self.ref_kf
         fd = self.frontend(*pair)
+        if self.localization_only and self.last_fd is not None:
+            # temporal VO points + the mbVO dual path (Tracking.cc:393-520)
+            res = self.fns.track_loc_body(
+                ms, fd, self.last_fd, self._t(self.last_Tcw), Tcw_pred,
+                self.last_assoc, self.last_inlier, ref_at_track)
+            return self._finish_loc_frame(ms, fd, res, ref_at_track,
+                                          timestamp)
         res = self.fns.track_body(ms, fd, Tcw_pred, self.last_assoc,
                                   self.last_inlier, ref_at_track, widen=True)
         ms2 = self.fns.apply_counters(ms, res.visible_mask, res.found_mask)
@@ -160,26 +182,60 @@ class SlamEngine:
                                                   res.found_mask)
         self.ms = ms2
         if sm.n_inliers_map < t.local_map_tracking_threshold:
-            self.state = tracking.LOST
-            self.velocity = None
-            self._record_traj(timestamp, None)
-            self.frame_id += 1
-            return None
+            return self._lost(timestamp)
+        self._tracked(sm, res)
+        if not self.localization_only and self._need_new_keyframe(sm):
+            self._create_keyframe(fd, res, timestamp)
+        return self._record_tracked(sm, fd, ref_at_track, timestamp)
 
+    def _lost(self, timestamp: float) -> None:
+        """A frame that lost tracking."""
+        self.state = tracking.LOST
+        self.velocity = None
+        self._record_traj(timestamp, None)
+        self.frame_id += 1
+
+    def _tracked(self, sm: tracking.Summary, res) -> None:
+        """Adopt a tracked frame's pose and associations."""
         self.state = tracking.OK
-        Tcw = sm.Tcw
         if self.last_Tcw is not None:
-            self.velocity = Tcw @ np.linalg.inv(self.last_Tcw)
-        self.last_Tcw = Tcw
+            self.velocity = sm.Tcw @ np.linalg.inv(self.last_Tcw)
+        self.last_Tcw = sm.Tcw
         self.last_assoc = res.assoc
         self.last_inlier = res.inlier
-        if self._need_new_keyframe(sm):
-            self._create_keyframe(fd, res, timestamp)
+
+    def _record_tracked(self, sm: tracking.Summary, fd, ref_at_track: int,
+                        timestamp: float) -> np.ndarray:
         self._append_traj(TrajectoryEntry(timestamp, sm.Tcr, ref_at_track,
                                           False))
         self.last_fd = fd
         self.frame_id += 1
-        return Tcw
+        return sm.Tcw
+
+    def _finish_loc_frame(self, ms, fd, res, ref_at_track: int,
+                          timestamp: float) -> Optional[np.ndarray]:
+        """Localization-mode frame epilogue: in VO mode a relocalization
+        attempt, whose success overrides the VO pose (the reference
+        computes both and prefers relocalization, Tracking.cc:450-489);
+        otherwise the frame is tracked if the map or, in VO mode, the
+        motion-model stage holds."""
+        t = self.cfg.tracking
+        sm = tracking.Summary.of(res)
+        vo_mode = sm.n_real_mm < 10
+        if vo_mode and self.loop_closer is not None:
+            Tcw, assoc = self.loop_closer.relocalize(self.ms, fd)
+            if Tcw is not None:
+                self.stats["reloc"] += 1
+                self._relocalized(Tcw, assoc, fd, timestamp)
+                self.frame_id += 1
+                return Tcw
+        if not (sm.n_inliers_map >= t.local_map_tracking_threshold
+                or (vo_mode and sm.n_inliers_mm > 20)):
+            return self._lost(timestamp)
+        self.ms = self.fns.apply_counters(ms, res.visible_mask,
+                                          res.found_mask)
+        self._tracked(sm, res)
+        return self._record_tracked(sm, fd, ref_at_track, timestamp)
 
     def _initialize(self, fd, timestamp: float) -> bool:
         """StereoInitialization: needs ≥ 50 features with depth."""
@@ -412,6 +468,12 @@ class SlamEngine:
             self._record_traj(timestamp, None)
             return None
         self.stats["reloc"] += 1
+        self._relocalized(Tcw, assoc, fd, timestamp)
+        return Tcw
+
+    def _relocalized(self, Tcw: np.ndarray, assoc, fd,
+                     timestamp: float) -> None:
+        """Adopt a relocalization's pose and associations."""
         self.state = tracking.OK
         self.velocity = None
         self.last_Tcw = Tcw.astype(np.float32)
@@ -419,7 +481,6 @@ class SlamEngine:
         self.last_inlier = torch.ones_like(assoc >= 0)
         self.last_fd = fd
         self._record_traj(timestamp, Tcw)
-        return Tcw
 
     def finish_gba(self) -> bool:
         """Wait for a background global BA and merge its result (the

@@ -1,15 +1,16 @@
 """Per-frame tracking steps: the numeric half of ``Tracking``.
 
-Port of ``orbslam2_tpu/runtime/tracking.py`` (stereo SLAM mode):
-``init_stereo``, ``track_body`` (motion-model stage with the ×2 widen
-retry, then the local-map stage), ``track_ref_kf`` (the
-TrackReferenceKeyFrame fallback, which reaches the ``hamming_top2``
-kernel through ``match_descriptors``), ``insert_keyframe_body`` and
-``apply_counters``.  Each step keeps the 40-float ``Summary`` layout, so
-the host state machine reads one small tensor per call.
+Port of ``orbslam2_tpu/runtime/tracking.py`` for the depth sensors
+(stereo, RGB-D): ``init_stereo``, ``track_body`` (motion-model stage
+with the ×2 widen retry, then the local-map stage), ``track_loc_body``
+(localization mode: temporal VO points and the mbVO dual path),
+``track_ref_kf`` (the TrackReferenceKeyFrame fallback, which reaches the
+``hamming_top2`` kernel through ``match_descriptors``),
+``insert_keyframe_body`` and ``apply_counters``.  Each step keeps the
+40-float ``Summary`` layout, so the host state machine reads one small
+tensor per call.
 
-The localization-mode VO path (``track_loc_body``), the mono bootstrap
-and ``pose_covariance`` wait for their ROADMAP items.
+The mono bootstrap and ``pose_covariance`` wait for their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -49,7 +50,9 @@ class TrackResult(NamedTuple):
     # [16:32] Tcr = Tcw · kf_pose[ref]⁻¹ row-major
     # [32] n_matches_mm   [33] n_inliers_mm   [34] n_inliers_map
     # [35] n_tracked_close  [36] n_nontracked_close
-    # [37] ref_tracked(minObs=2)  [38] ref_tracked(minObs=3)  [39] pad
+    # [37] ref_tracked(minObs=2)  [38] ref_tracked(minObs=3)
+    # [39] localization mode: inlier matches to real map points (mbVO
+    #      datum), 0 elsewhere
 
 
 def pack_summary(Tcw, Tcr, scalars) -> torch.Tensor:
@@ -109,6 +112,7 @@ class TrackingFns(NamedTuple):
     init_stereo: object
     track: object
     track_body: object
+    track_loc_body: object
     track_ref_kf: object
     insert_keyframe_body: object
     apply_counters: object
@@ -249,6 +253,94 @@ def make_tracking_fns(cfg: SlamConfig) -> TrackingFns:
         return track_body(ms, fd, Tcw_pred, last_assoc, last_ok, ref_kf,
                           widen=False)
 
+    # ------------------------------------------- localization-mode VO track
+    def track_loc_body(ms: M.MapState, fd: FrameData, prev_fd: FrameData,
+                       prev_Tcw, Tcw_pred, last_assoc, last_ok,
+                       ref_kf: int) -> TrackResult:
+        """Localization-mode tracking with temporal visual-odometry points
+        (UpdateLastFrame, Tracking.cc:901-965, and the mbVO dual path,
+        :393-520): the previous frame's depth spawns one-shot VO points
+        that join the motion-model search (VO ids are P + feature index).
+        Summary slot 39 holds the mbVO datum, the inlier matches to real
+        map points with ≥ 1 observation; below 10 the frame is in VO mode
+        and keeps the stage-1 pose.  The local-map stage is always
+        computed and the result selected on the device, as in JAX."""
+        dev = fd.xy.device
+        P = ms.P
+        # temporal VO points: close depth, or the nearest
+        # points_closer_threshold (a stable ranking, as jnp.argsort's)
+        can = prev_fd.valid & (prev_fd.depth > 0)
+        close = can & (prev_fd.depth <= depth_cutoff)
+        order = torch.argsort(
+            torch.where(can, prev_fd.depth,
+                        torch.full_like(prev_fd.depth, float("inf"))),
+            stable=True)
+        rank_of = torch.empty(N, dtype=torch.int64, device=dev)
+        rank_of[order] = torch.arange(N, device=dev)
+        keep = can & (close | (rank_of < tcfg.points_closer_threshold))
+        la_ok = last_assoc >= 0
+        la_safe = torch.where(la_ok, last_assoc, 0).long()
+        has_mp = la_ok & ms.mp_valid[la_safe] & (ms.mp_n_obs[la_safe] >= 1)
+        vo_valid = keep & ~has_mp
+        pos_c = cam_mod.backproject(cam, prev_fd.xy, prev_fd.depth)
+        Twc_prev = lie.se3_inv(prev_Tcw)
+        vo_pos = lie.transform_points(Twc_prev, pos_c)
+        dist = torch.linalg.norm(pos_c, dim=-1)
+        ray_w = vo_pos - Twc_prev[:3, 3]
+        vo_normal = ray_w / torch.clamp(
+            torch.linalg.norm(ray_w, dim=-1, keepdim=True), min=1e-9)
+
+        # stage 1 over the union query (map points ∪ VO points)
+        lq_ok = la_ok & last_ok
+        idx = torch.where(lq_ok, last_assoc, 0).long()
+        normals = ms.mp_normal()
+        q_union = matching.ProjectionQuery(
+            pos_w=torch.cat([ms.mp_pos[idx], vo_pos]),
+            normal=torch.cat([normals[idx], vo_normal]),
+            min_dist=torch.cat([ms.mp_min_dist[idx], 0.5 * dist]),
+            max_dist=torch.cat([ms.mp_max_dist[idx], 2.0 * dist]),
+            desc=torch.cat([ms.mp_desc[idx], prev_fd.desc]),
+            valid=torch.cat([lq_ok & ms.mp_valid[idx], vo_valid]))
+        m1, d1, _ = matching.search_by_projection(
+            cam, Tcw_pred, q_union, fd.xy, fd.level, fd.desc, fd.valid,
+            fd.ur, sf, nl, radius=mm_radius,
+            nn_ratio=tcfg.motion_model_nn_ratio, view_cos_limit=-1.0,
+            check_ur=True)
+        m1 = matching.resolve_duplicates(m1, d1, N)
+        n_mm = count(m1 >= 0)
+        union_ids = torch.cat([
+            last_assoc.to(torch.int32),
+            P + torch.arange(N, dtype=torch.int32, device=dev)])
+        assoc_u = _assoc_from_query_match(m1, union_ids, N)
+        is_real = (assoc_u >= 0) & (assoc_u < P)
+        real_safe = torch.where(is_real, assoc_u, 0).long()
+        vo_i = torch.clamp(assoc_u.long() - P, 0, N - 1)
+        obs1 = pose_opt.PoseObs(
+            pts_w=torch.where(is_real[:, None], ms.mp_pos[real_safe],
+                              vo_pos[vo_i]),
+            uv=fd.xy, ur=fd.ur, inv_sigma2=inv_sigma2(dev)[fd.level.long()],
+            valid=(assoc_u >= 0) & fd.valid)
+        pose1, inl1, n1 = pose_opt.pose_optimization(cam, Tcw_pred, obs1)
+        n_real = count(is_real & inl1 & (ms.mp_n_obs[real_safe] >= 1))
+        vo_mode = n_real < 10
+
+        # stage 2 on the real map points, kept unless in VO mode
+        assoc1 = torch.where(is_real & inl1, assoc_u, M.NO_MP)
+        res2 = _stage2(ms, fd, pose1, assoc1, ref_kf, n_mm, n1)
+        pose_f = torch.where(vo_mode, pose1, res2.Tcw)
+        assoc_f = torch.where(vo_mode, assoc1, res2.assoc)
+        inlier = torch.where(vo_mode, inl1, res2.inlier)
+        close_f = fd.valid & (fd.depth > 0) & (fd.depth < depth_cutoff)
+        Tcr = pose_f @ lie.se3_inv(ms.kf_pose[ref_kf])
+        summary = pack_summary(pose_f, Tcr, [
+            n_mm, n1, res2.summary[34], count(close_f & (assoc_f >= 0)),
+            count(close_f & (assoc_f < 0)), _ref_tracked(ms, ref_kf, 2),
+            _ref_tracked(ms, ref_kf, 3), n_real])
+        return TrackResult(Tcw=pose_f, assoc=assoc_f, inlier=inlier,
+                           summary=summary,
+                           visible_mask=res2.visible_mask,
+                           found_mask=res2.found_mask)
+
     # ------------------------------------------------ reference-KF fallback
     def track_ref_kf(ms: M.MapState, fd: FrameData, ref_kf: int,
                      Tcw_init) -> TrackResult:
@@ -324,6 +416,7 @@ def make_tracking_fns(cfg: SlamConfig) -> TrackingFns:
             mp_found=ms.mp_found + found_mask.to(torch.int32))
 
     return TrackingFns(init_stereo=init_stereo, track=track,
-                       track_body=track_body, track_ref_kf=track_ref_kf,
+                       track_body=track_body, track_loc_body=track_loc_body,
+                       track_ref_kf=track_ref_kf,
                        insert_keyframe_body=insert_keyframe_body,
                        apply_counters=apply_counters)

@@ -1,7 +1,8 @@
 """Windowed SLAM engine: W tracked frames per window.
 
-Port of ``orbslam2_tpu/runtime/windowed.py`` for the stereo sensor.  A
-window tracks W frames in a row against one map: frontend,
+Port of ``orbslam2_tpu/runtime/windowed.py`` for the depth sensors
+(stereo pairs, RGB-D gray and depth).  A window tracks W frames in a row
+against one map: frontend,
 constant-velocity prediction, the two-stage track with its ×2 widen
 retry, and the TrackReferenceKeyFrame fallback, all inside the window.
 The host then replays the keyframe decision (NeedNewKeyFrame) frame by
@@ -29,8 +30,10 @@ keyframe's pose (ROADMAP.md, Queue 3).
 The JAX version runs a window as one device program (``lax.scan``);
 here the window is a Python loop over tensors on the device, and the
 fallback is a host branch on the frame's inlier count.  Initialization,
-LOST and relocalization go through the per-frame engine.  Mono and RGB-D
-raise in the base engine; localization mode raises here.
+LOST and relocalization go through the per-frame engine.  In
+localization mode windows still track with ``track_body``; only the
+keyframe decision at the retire is skipped (JAX ``windowed.py:415``).
+Mono raises in the base engine.
 """
 
 from __future__ import annotations
@@ -45,8 +48,7 @@ from orbslam2_tpu_torch.models import frame as frame_mod
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.ops.hamming_top2 import launch_site
 from orbslam2_tpu_torch.runtime import local_mapping, tracking
-from orbslam2_tpu_torch.runtime.slam import (SlamEngine, TrajectoryEntry,
-                                             _not_ported)
+from orbslam2_tpu_torch.runtime.slam import SlamEngine, TrajectoryEntry
 from orbslam2_tpu_torch.runtime.streaming import constant_velocity_prediction
 
 
@@ -64,10 +66,11 @@ class SlamWindowOut(NamedTuple):
 
 def make_slam_window_tracker(cfg: SlamConfig, window: int):
     """track_window(ms, pairs, state_T, assoc0, inlier0, ref_kf) →
-    SlamWindowOut, for ``window`` stereo pairs (each a (left, right)
-    float32 [H, W] pair on the map's device)."""
+    SlamWindowOut, for ``window`` frames, each the sensor's pair of
+    float32 [H, W] tensors on the map's device: (left, right) for
+    stereo, (gray, depth) for RGB-D."""
     fns = tracking.make_tracking_fns(cfg)
-    frontend = frame_mod.make_frontend_stereo(cfg)
+    frontend = frame_mod.make_frontend(cfg)
     th_local = cfg.tracking.local_map_tracking_threshold
     min_ref = cfg.tracking.min_matches_ref_keyframe
 
@@ -82,8 +85,8 @@ def make_slam_window_tracker(cfg: SlamConfig, window: int):
         vis = torch.zeros(ms.P, dtype=torch.int32, device=ms.mp_pos.device)
         fnd = torch.zeros_like(vis)
         rows = []
-        for left, right in pairs:
-            fd = frontend(left, right)
+        for pair in pairs:
+            fd = frontend(*pair)
             pred = constant_velocity_prediction(T_prev, T_prev2)
             res = fns.track_body(ms, fd, pred, assoc, ok, ref_kf, widen=True)
             sm = res.summary.cpu()
@@ -134,9 +137,10 @@ def make_window_mapping_step(cfg: SlamConfig):
 
 
 class WindowedSlamEngine(SlamEngine):
-    """Stereo SLAM engine tracking in windows of ``window`` frames.
+    """Stereo / RGB-D SLAM engine tracking in windows of ``window`` frames.
 
-    ``track_stereo`` buffers frames and returns the most recently retired
+    ``track_stereo`` / ``track_rgbd`` buffer frames and return the most
+    recently retired
     pose (up to 2·window − 1 frames behind; None until the first window
     retires).  :meth:`flush` retires what is in flight; ``frame_poses``
     and ``finish_gba`` flush first.  Runs on the CUDA card unless
@@ -160,12 +164,14 @@ class WindowedSlamEngine(SlamEngine):
 
     # --------------------------------------------------------- frame entry
     def track_stereo(self, left, right, timestamp: float):
-        if self.localization_only:
-            raise _not_ported("localization mode",
-                              "track_loc_body and localization mode")
         if self.state != tracking.OK:
             return super().track_stereo(left, right, timestamp)
         return self._push(self._upload_pair(left, right), timestamp)
+
+    def track_rgbd(self, gray, depth, timestamp: float):
+        if self.state != tracking.OK:
+            return super().track_rgbd(gray, depth, timestamp)
+        return self._push(self._upload_rgbd(gray, depth), timestamp)
 
     def _push(self, pair, timestamp: float):
         self._buf.append((pair, timestamp))
@@ -316,8 +322,10 @@ class WindowedSlamEngine(SlamEngine):
                 self.velocity = sm.Tcw @ np.linalg.inv(self.last_Tcw)
             self._prev2_Tcw = self.last_Tcw
             self.last_Tcw = sm.Tcw
-            # keyframe decision before the frame id advances
-            if self._need_new_keyframe(sm, ref_override):
+            # keyframe decision before the frame id advances; none in
+            # localization mode
+            if (not self.localization_only
+                    and self._need_new_keyframe(sm, ref_override)):
                 self._create_window_keyframe(out, j, ts)
                 ref_override = sm.n_inliers_map
             self.frame_id += 1

@@ -203,3 +203,182 @@ def test_windowed_fallback_launches_the_kernel_and_equals_plain():
     finally:
         matching.hamming_top2 = tk.hamming_top2
     assert all(p is not None for p in eng.frame_poses())
+
+
+def _rgbd_engine(n_frames=10, **kw):
+    """A port RGB-D engine on the card over the corridor at 0.4 m a frame
+    (600 features, 16 keyframes); returns (engine, world, poses, cam)."""
+    from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                           OrbConfig, RGBD, SlamConfig)
+    from orbslam2_tpu_torch.runtime.slam import SlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0,
+                       width=640, height=480, fps=10.0, th_depth=60.0)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=600),
+                     capacity=CapacityConfig(max_keyframes=16,
+                                             max_map_points=4096,
+                                             local_ba_keyframes=8,
+                                             local_ba_points=1024),
+                     sensor=RGBD)
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    poses = synthetic.straight_trajectory(n_frames, step=0.4)
+    eng = SlamEngine(cfg, **kw)           # no device: the card by default
+    assert eng.device.type == "cuda"
+    for i, T in enumerate(poses):
+        g, d = synthetic.render_world(world, cam, T, rng, 1.0,
+                                      with_depth=True)
+        assert eng.track_rgbd(np.clip(g, 0, 255).astype(np.uint8), d,
+                              0.1 * i) is not None, i
+    return eng, world, poses, cam
+
+
+def test_rgbd_track_ref_kf_launches_the_kernel_and_equals_plain():
+    """TrackReferenceKeyFrame on an RGB-D map built on the card: one
+    launch attributed to track_ref_kf, and the same associations and
+    pose as the plain version."""
+    eng, _, _, _ = _rgbd_engine(enable_loop_closing=False)
+    Tcw = torch.as_tensor(eng.last_Tcw, device="cuda")
+    before = tk.hamming_top2.launches_by_site.get("track_ref_kf", 0)
+    res = eng.fns.track_ref_kf(eng.ms, eng.last_fd, eng.ref_kf, Tcw)
+    torch.cuda.synchronize()
+    assert tk.hamming_top2.launches_by_site.get("track_ref_kf", 0) == \
+        before + 1
+    matching.hamming_top2 = tk.hamming_top2_reference
+    try:
+        res_p = eng.fns.track_ref_kf(eng.ms, eng.last_fd, eng.ref_kf, Tcw)
+    finally:
+        matching.hamming_top2 = tk.hamming_top2
+    assert torch.equal(res.assoc, res_p.assoc)
+    assert torch.equal(res.Tcw, res_p.Tcw)
+    assert int((res.assoc >= 0).sum()) >= 50
+
+
+def test_localization_reloc_attempt_equals_plain():
+    """In localization mode a LOST RGB-D engine on the card relocalizes
+    from a re-rendered early frame (launches attributed to
+    reloc_attempt, the map unchanged); the attempt that succeeded, run
+    again with the kernel and with the plain version from its generator
+    state, gives the same pose, inliers and associations."""
+    from orbslam2_tpu_torch.utils import synthetic
+
+    eng, world, poses, cam = _rgbd_engine()
+    eng.localization_only = True
+    lc = eng.loop_closer
+    attempt, calls = lc.fns.reloc_attempt, []
+
+    def recorded(*args):
+        calls.append((args, args[-1].get_state()))
+        return attempt(*args)
+
+    lc.fns = lc.fns._replace(reloc_attempt=recorded)
+    g, d = synthetic.render_world(world, cam, poses[2],
+                                  np.random.default_rng(7), 1.0,
+                                  with_depth=True)
+    eng.state = 3                                        # LOST
+    kfs = eng.n_kfs
+    before = tk.hamming_top2.launches_by_site.get("reloc_attempt", 0)
+    Tcw = eng.track_rgbd(np.clip(g, 0, 255).astype(np.uint8), d, 9.0)
+    torch.cuda.synchronize()
+    lc.fns = lc.fns._replace(reloc_attempt=attempt)
+    assert Tcw is not None and eng.n_kfs == kfs
+    assert tk.hamming_top2.launches_by_site.get("reloc_attempt", 0) > before
+    args, state = calls[-1]
+    outs = []
+    for top2 in (tk.hamming_top2, tk.hamming_top2_reference):
+        gen = torch.Generator(device="cuda")
+        gen.set_state(state)
+        matching.hamming_top2 = top2
+        try:
+            outs.append(attempt(*args[:-1], gen))
+            torch.cuda.synchronize()
+        finally:
+            matching.hamming_top2 = tk.hamming_top2
+    (T1, n1, a1), (T2, n2, a2) = outs
+    assert torch.equal(T1, T2) and int(n1) == int(n2) >= 50
+    assert torch.equal(a1, a2)
+
+
+def test_cg_on_the_card_matches_dense_on_the_card():
+    """One robust GBA chunk's LM (5 iterations) on a perturbed map of 264
+    keyframe slots, built on the card, through both solvers there: poses
+    within 1e-4, points nearer than 20 m within 1e-3 m, all within 2e-2
+    of their range (far stereo depth is barely observed)."""
+    from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                           OrbConfig, STEREO, SlamConfig)
+    from orbslam2_tpu_torch.models import map_state as M
+    from orbslam2_tpu_torch.ops import bundle
+    from orbslam2_tpu_torch.runtime import gba
+    from orbslam2_tpu_torch.runtime.slam import SlamEngine
+    from orbslam2_tpu_torch.utils import camera as cam_mod
+    from orbslam2_tpu_torch.utils import lie, synthetic
+
+    cam = CameraConfig(fx=225.0, fy=225.0, cx=160.0, cy=120.0, bf=75.0,
+                       width=320, height=240, fps=10.0, th_depth=60.0)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=200),
+                     capacity=CapacityConfig(max_keyframes=264,
+                                             max_map_points=2048,
+                                             local_ba_keyframes=4,
+                                             local_ba_points=512),
+                     sensor=STEREO)
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    eng = SlamEngine(cfg, enable_loop_closing=False)
+    for i, T in enumerate(synthetic.straight_trajectory(8, step=0.3)):
+        eng.track_stereo(*synthetic.render_world_stereo(world, cam, T, rng,
+                                                        1.0), 0.1 * i)
+    ms = eng.ms
+    g = torch.Generator(device="cuda").manual_seed(1)
+    live = ms.kf_valid.clone()
+    live[0] = False
+    xi = torch.randn(ms.K, 6, device="cuda", generator=g) * torch.tensor(
+        [0.01] * 3 + [0.05] * 3, device="cuda")
+    pose = torch.where(live[:, None, None], lie.se3_exp(xi) @ ms.kf_pose,
+                       ms.kf_pose)
+    pts = ms.mp_pos + 0.05 * torch.randn(ms.mp_pos.shape, device="cuda",
+                                         generator=g) * ms.mp_valid[:, None]
+    ms = ms._replace(kf_pose=pose, mp_pos=pts)
+    prob = gba.full_map_problem(cfg, ms, M.kf_obs_ok(ms))
+    c = cam_mod.Camera.from_config(cam)
+    out = {s: bundle.bundle_adjust(c, prob, n_free=ms.K, iters_a=5,
+                                   iters_b=0, fix_first_free=True, solver=s)
+           for s in ("dense", "cg")}
+    torch.cuda.synchronize()
+    kv, pv = ms.kf_valid, ms.mp_valid
+    assert torch.allclose(out["cg"][0][kv], out["dense"][0][kv], atol=1e-4,
+                          rtol=0)
+    xc, xd = out["cg"][1][pv], out["dense"][1][pv]
+    gap = torch.linalg.norm(xc - xd, dim=1)
+    rng_ = torch.linalg.norm(xd, dim=1)
+    near = rng_ < 20.0
+    assert int(near.sum()) > 100 and float(gap[near].max()) < 1e-3
+    assert float((gap / rng_).max()) < 2e-2
+
+
+def test_segment_sums_do_not_change_from_run_to_run():
+    """``index.scatter_add`` on the card: float sums over duplicated
+    indices give the same bits on every call (``index_add_`` adds by
+    atomics in arrival order), with half the rows masked (as the invalid
+    observations of a full-map BA), in float32 against a float64 sum and
+    exact in int32."""
+    from orbslam2_tpu_torch.utils.index import scatter_add
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n, m = 1 << 18, 512
+    idx = torch.randint(0, m, (n,), device="cuda", generator=g)
+    ok = torch.rand(n, device="cuda", generator=g) < 0.5
+    vals = torch.randn(n, 6, 3, device="cuda", generator=g)
+    zeros = torch.zeros(m, 6, 3, device="cuda")
+    runs = [scatter_add(zeros, idx, vals, ok) for _ in range(5)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    ref = torch.zeros(m, 6, 3, dtype=torch.float64, device="cuda")
+    ref.index_add_(0, idx[ok], vals[ok].double())
+    assert torch.allclose(runs[0].double(), ref, atol=1e-3, rtol=1e-5)
+    ints = torch.randint(-3, 4, (n,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    got = scatter_add(torch.zeros(m, dtype=torch.int32, device="cuda"), idx,
+                      ints, ok)
+    want = torch.zeros(m, dtype=torch.int32, device="cuda").index_add_(
+        0, idx[ok], ints[ok])
+    assert torch.equal(got, want)

@@ -1,16 +1,21 @@
 """The port's stateful entry points run on the CUDA card by default.
 
-``SlamEngine(cfg)``, ``WindowedSlamEngine(cfg)``, ``LoopCloser(cfg, voc)``
-and ``streaming.make_window_tracker(cfg, window)`` with no ``device`` take
-the card, and raise where torch has no CUDA device (forced here with
-``monkeypatch``, so the tests mean the same on a host with a card); an
-explicit ``device="cpu"`` builds them on the CPU."""
+``SlamEngine(cfg)``, ``WindowedSlamEngine(cfg)`` (stereo and RGB-D),
+``LoopCloser(cfg, voc)`` and ``streaming.make_window_tracker(cfg, window)``
+with no ``device`` take the card, and raise where torch has no CUDA
+device (forced here with ``monkeypatch``, so the tests mean the same on a
+host with a card); an explicit ``device="cpu"`` builds them on the CPU.
+``track_rgbd`` uploads its frame to the engine's device."""
 
 import pytest
 import torch
 
+import dataclasses
+
+import numpy as np
+
 from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
-                                       OrbConfig, STEREO, SlamConfig)
+                                       OrbConfig, RGBD, STEREO, SlamConfig)
 from orbslam2_tpu_torch.models import vocabulary as voc_mod
 from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.runtime import streaming
@@ -29,11 +34,18 @@ CFG = SlamConfig(
     sensor=STEREO)
 
 
+RGBD_CFG = dataclasses.replace(CFG, sensor=RGBD)
+
+
 def _build(entry, **kw):
     if entry == "SlamEngine":
         return SlamEngine(CFG, **kw)
     if entry == "WindowedSlamEngine":
         return WindowedSlamEngine(CFG, **kw)
+    if entry == "SlamEngine(RGBD)":
+        return SlamEngine(RGBD_CFG, **kw)
+    if entry == "WindowedSlamEngine(RGBD)":
+        return WindowedSlamEngine(RGBD_CFG, **kw)
     if entry == "make_window_tracker":
         return streaming.make_window_tracker(CFG, 2, **kw)
     voc = voc_mod.default_vocabulary(k=CFG.capacity.vocab_k,
@@ -42,7 +54,8 @@ def _build(entry, **kw):
 
 
 ENTRIES = ["SlamEngine", "LoopCloser", "WindowedSlamEngine",
-           "make_window_tracker"]
+           "make_window_tracker", "SlamEngine(RGBD)",
+           "WindowedSlamEngine(RGBD)"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -57,7 +70,7 @@ def test_explicit_cpu_builds(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     obj = _build(entry, device="cpu")
     assert obj.device == torch.device("cpu")
-    if entry.endswith("SlamEngine"):
+    if "SlamEngine" in entry:
         assert obj.ms.kf_valid.device.type == "cpu"
         assert obj.loop_closer.device == torch.device("cpu")
 
@@ -66,3 +79,23 @@ def test_default_is_the_card_when_there_is_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert device_mod.resolve() == torch.device("cuda")
     assert device_mod.resolve("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["SlamEngine(RGBD)",
+                                   "WindowedSlamEngine(RGBD)"])
+def test_track_rgbd_uploads_to_the_engine_device(entry, monkeypatch):
+    """The RGB-D frame goes to the engine's device (the card when none was
+    given): gray uint8 → float32, depth float32 as given.  ``meta``
+    stands in for the card here."""
+    eng = _build(entry, device="cpu")
+    eng.device = torch.device("meta")
+    seen = []
+    monkeypatch.setattr(eng, "_track_common",
+                        lambda pair, ts: seen.append(pair))
+    gray = np.full((240, 320), 7, np.uint8)
+    depth = np.full((240, 320), 2.5, np.float64)
+    eng.track_rgbd(gray, depth, 0.0)
+    (g, d), = seen
+    assert g.device.type == d.device.type == "meta"
+    assert g.dtype == d.dtype == torch.float32
+    assert tuple(g.shape) == tuple(d.shape) == (240, 320)

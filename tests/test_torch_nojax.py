@@ -5,7 +5,11 @@ In a subprocess where ``import jax`` fails, import the port and
 on the CPU with loop closing on (keyframe DB registration, detection,
 then relocalization from LOST), then through ``WindowedSlamEngine`` in
 windows of two and one LOC window of ``streaming.make_window_tracker``,
-and check that nothing of jax or ``orbslam2_tpu`` was loaded.
+then RGB-D frames through ``SlamEngine.track_rgbd`` and
+``WindowedSlamEngine.track_rgbd``, each then in localization mode (the
+VO path, relocalization from LOST, windows that insert nothing), and a
+GBA chunk past 256 keyframe slots (the CG solver), and check that
+nothing of jax or ``orbslam2_tpu`` was loaded.
 Also: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -69,6 +73,42 @@ res = track(weng.ms, streaming.pack_window_uint8(frames[7:]),
             np.stack([weng.last_Tcw, weng.last_Tcw]), weng.last_assoc,
             weng.ref_kf)
 assert res.summaries.shape == (1, 40) and float(res.summaries[0, 34]) >= 30
+from orbslam2_tpu_torch.config import RGBD
+import dataclasses
+rcfg = dataclasses.replace(cfg, sensor=RGBD)
+rframes = [synthetic.render_world(world, cam, T, rng, 1.0, with_depth=True)
+           for T in poses]
+rframes = [(np.clip(g, 0, 255).astype(np.uint8), d) for g, d in rframes]
+reng = SlamEngine(rcfg, device="cpu")
+for i, (g, d) in enumerate(rframes[:6]):
+    assert reng.track_rgbd(g, d, 0.1 * i) is not None, i
+reng.localization_only = True
+kfs = reng.stats["kf_inserted"]
+assert reng.track_rgbd(*rframes[6], 0.6) is not None       # the VO path
+reng.state = tracking.LOST
+assert reng.track_rgbd(*rframes[2], 0.7) is not None       # relocalized
+assert reng.stats["kf_inserted"] == kfs and reng.stats["reloc"] == 1
+rweng = WindowedSlamEngine(rcfg, enable_loop_closing=False, device="cpu",
+                           window=2)
+for i, (g, d) in enumerate(rframes[:5]):
+    rweng.track_rgbd(g, d, 0.1 * i)
+rweng.localization_only = True
+kfs = rweng.stats["kf_inserted"]
+for i, (g, d) in enumerate(rframes[5:], start=5):
+    rweng.track_rgbd(g, d, 0.1 * i)
+assert len(rweng.frame_poses()) == 8 and rweng.state == 2, rweng.stats
+assert rweng.stats["kf_inserted"] == kfs
+from orbslam2_tpu_torch.runtime import gba
+big = dataclasses.replace(cfg, capacity=CapacityConfig(
+    max_keyframes=264, max_map_points=1024, local_ba_keyframes=2,
+    local_ba_points=256))
+beng = SlamEngine(big, enable_loop_closing=False, device="cpu")
+for i, (left, right) in enumerate(frames[:3]):
+    beng.track_stereo(left, right, 0.1 * i)
+chunk, _ = gba.make_gba_fns(big)
+ms2, inl = chunk(beng.ms, torch.ones(264 * beng.ms.N, dtype=torch.bool),
+                 True)
+assert bool(torch.isfinite(ms2.kf_pose).all())
 bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
              or m.startswith("orbslam2_tpu.")
              or (m.split(".")[0] == "jax" and sys.modules[m] is not None))

@@ -616,10 +616,14 @@ def test_in_window_fallback_rule(monkeypatch):
                                   "map on another device"])
 def test_windowed_entry_points_refuse(case):
     if case == "localization mode":
-        eng = _engine()
+        # windows still track; the retire refuses every keyframe insert
+        eng = _engine(decide=lambda f: True)
         eng.localization_only = True
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.track_stereo(IMG, IMG, 0.1)
+        s = Script(eng)
+        _push(eng, 1, 2 * W + 1)
+        eng.flush()
+        assert s.log == [("track", 0, 0), ("track", 1, 0)], s.log
+        assert not s.inserts and len(eng.trajectory) == 2 * W
     elif case == "window length":
         ms = type("MS", (), {"P": 4, "mp_pos": torch.zeros(1)})()
         tracker = twindowed.make_slam_window_tracker(TINY, 4)
