@@ -79,6 +79,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  and forced through the dense Schur solve; ms (CUDA
                  events) and peak device memory of each, agreement within
                  stated tolerances, kernels and device ms per CG step;
+ 17. mono      — SlamEngine(MONOCULAR, loop closing off) over
+                 tests/test_mono.py's scene and 25-frame sideways walk at
+                 640×480, 2000 features (that test's; at 1000 the scene
+                 never passes the bootstrap's 100-match gate), 128
+                 keyframes, 16k points: the frame that initialized, H or
+                 F, the bootstrap's points, per-layer ms of the bootstrap
+                 and the frames after it; ends OK, similarity-aligned ATE
+                 < 0.03 × path length; track_ref_kf's matching calls
+                 replayed with the plain version;
+ 18. bench mono — bench.py's mono leg: WindowedSlamEngine(MONOCULAR,
+                 window=4, loop closing on), the bench world along
+                 look_ahead_pose((0.18 i, 0, 0.04 i)), 28 warm-up frames,
+                 two passes of 48 each ending in flush() and a
+                 synchronize: fps per pass, ms and keyframes a frame, loops
+                 closed, similarity-aligned ATE, launches by site (every
+                 matching call that launched the kernel replayed with the
+                 plain version), one window under torch.profiler; must
+                 not end LOST;
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
@@ -86,7 +104,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  launch (torch.profiler, ``device_ms``; run last so that no
                  profiler session precedes a timed phase) against its
                  bound.
-Phases run in the order 1-8, 10-16, 9.  Every time printed carries the
+Phases run in the order 1-8, 10-18, 9.  Every time printed carries the
 card's name and power limit.  The line before the last is the kernels'
 JSON record (launches per path); the last line is {"ok": true,
 "device": {...}}.  Imports nothing of JAX.
@@ -728,9 +746,9 @@ CV2_PROXY_ATE = 0.1127         # the cv2 proxy's ATE there (BENCH_r05)
 LOC_WINDOW, LOC_WINDOWS = 8, 6      # bench.py: 24 windows a pass
 
 
-def _record_matches(site):
-    """Wrap the matcher so that calls made at launch site ``site`` are kept
-    (inputs and kernel outputs) for a replay; returns (records,
+def _record_matches(*sites):
+    """Wrap the matcher so that calls made at the launch sites ``sites``
+    are kept (inputs and kernel outputs) for a replay; returns (records,
     restore)."""
     from orbslam2_tpu_torch.ops import hamming_top2 as ht2
     from orbslam2_tpu_torch.ops import matching
@@ -740,7 +758,7 @@ def _record_matches(site):
 
     def recording(*args, **kwargs):
         out = match(*args, **kwargs)
-        if ht2._site.name == site:
+        if ht2._site.name in sites:
             records.append((args, kwargs, out))
         return out
 
@@ -1346,6 +1364,235 @@ def phase_gba_solvers(smi):
             "device_ms_per_cg_step": ms_step}
 
 
+# phases 17-18: mono (tests/test_mono.py:81-107; bench.py:199-231)
+MONO_FRAMES = 25
+MONO_PASS, MONO_WARMUP = 48, 28
+
+
+def mono_config(n_features=1000):
+    """The bench camera and capacity with ``sensor=MONOCULAR``."""
+    from orbslam2_tpu_torch.config import MONOCULAR, OrbConfig
+
+    return dataclasses.replace(bench_config(), sensor=MONOCULAR,
+                               orb=OrbConfig(n_features=n_features))
+
+
+def _u8(img):
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def mono_ate(eng, poses_gt):
+    """Similarity-aligned ATE (mono has no scale) over the frames that have
+    a trajectory entry, from the one that initialized on, and their
+    count."""
+    from orbslam2_tpu_torch.utils import trajectory
+
+    entries = eng.trajectory
+    pairs = [(Te, Tg) for Te, Tg, e in zip(
+        eng.frame_poses(), poses_gt[len(poses_gt) - len(entries):], entries)
+        if Te is not None and not e.lost]
+    est = trajectory.centers_from_poses([Te for Te, _ in pairs])
+    gt = trajectory.centers_from_poses([Tg for _, Tg in pairs])
+    return trajectory.ate_rmse(est, gt, align=True, with_scale=True), \
+        len(pairs)
+
+
+def phase_mono_slice(smi):
+    """Phase 17: SlamEngine(MONOCULAR, loop closing off) over
+    tests/test_mono.py's scene and sideways walk (25 frames at (0.3 i, 0,
+    0.1 i)), at the bench's 640×480, 128 keyframes and 16k points, with
+    that test's 2000 features: at 1000 features this scene gives 36-60
+    SearchForInitialization matches a frame pair, under the bootstrap's
+    100, and neither package initializes.  Per-layer ms of the bootstrap
+    (SearchForInitialization, the H/F initializer, mono_build, which
+    holds the initializer, and the initial local BA) and of the frames
+    after it; the engine must end OK with a similarity-aligned ATE under
+    0.03 × the path length (the test's own bar); every track_ref_kf
+    matching call is replayed with the plain version."""
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.ops import initializer
+    from orbslam2_tpu_torch.runtime import tracking
+    from orbslam2_tpu_torch.runtime.slam import SlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = mono_config(n_features=2000)
+    rng = np.random.default_rng(0)
+    scene = synthetic.make_scene(rng, 1800, extent=(14.0, 9.0, 9.0),
+                                 z_near=2.5)
+    poses_gt = [synthetic.look_ahead_pose(np.array([0.3 * i, 0.0, 0.1 * i]))
+                for i in range(MONO_FRAMES)]
+    frames = [_u8(synthetic.render(scene, cfg.camera, T, rng, 1.0))
+              for T in poses_gt]
+    eng = SlamEngine(cfg, enable_loop_closing=False)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"mono: SlamEngine chose {eng.device}")
+    layers = {name: [] for name in (
+        "search_for_initialization", "initialize_mono", "mono_build",
+        "local_ba (bootstrap)", "track_body", "track_ref_kf",
+        "mapping_step")}
+    fns = eng.fns
+    eng.fns = fns._replace(
+        mono_match=_timed(fns.mono_match, layers["search_for_initialization"]),
+        mono_build=_timed(fns.mono_build, layers["mono_build"]),
+        track_body=_timed(fns.track_body, layers["track_body"]),
+        track_ref_kf=_timed(fns.track_ref_kf, layers["track_ref_kf"]))
+    eng.mapping_fns.local_ba = _timed(eng.mapping_fns.local_ba,
+                                      layers["local_ba (bootstrap)"])
+    eng.f_mapping_step = _timed(eng.f_mapping_step, layers["mapping_step"])
+    init_fn, inits = initializer.initialize_mono, []
+
+    def init_timed(*args, **kwargs):
+        res = _timed(init_fn, layers["initialize_mono"])(*args, **kwargs)
+        inits.append(res)
+        return res
+
+    initializer.initialize_mono = init_timed
+    records, restore = _record_matches("track_ref_kf")
+    ht2.reset_launch_counts()          # the mono slice's count
+    frame_ms, first = [], None
+    try:
+        for i, img in enumerate(frames):
+            t0 = time.perf_counter()
+            Tcw = eng.track_monocular(img, 0.1 * i)
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            if Tcw is not None:
+                if Tcw.shape != (4, 4) or not np.all(np.isfinite(Tcw)):
+                    raise AssertionError(f"mono: bad pose at frame {i}")
+                if first is None:
+                    first = i
+                    n_boot = eng.stats["mp_created"]
+    finally:
+        restore()
+        initializer.initialize_mono = init_fn
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+    eng.fns = fns
+    if first is None:
+        raise AssertionError(f"mono: never initialized ({eng.stats})")
+    used_h = bool(inits[-1].used_h)
+    err, n_tracked = mono_ate(eng, poses_gt)
+    path = 0.32 * MONO_FRAMES          # tests/test_mono.py:116
+    same = _replay_plain(records)
+    print(f"[mono] {MONO_FRAMES} frames of tests/test_mono.py's scene at "
+          f"{cfg.orb.n_features} features: initialized at frame {first} "
+          f"after {len(inits)} initializer run(s), model "
+          f"{'H' if used_h else 'F'} (used_h {used_h}), {n_boot} bootstrap "
+          f"points; state {eng.state}, tracked {n_tracked}, KFs inserted "
+          f"{eng.stats['kf_inserted']}, live map points "
+          f"{len(eng.map_points())}; median {np.median(frame_ms):.1f} "
+          f"ms/frame, after the bootstrap "
+          f"{np.median(frame_ms[first + 1:]):.1f} ms; similarity-aligned "
+          f"ATE {err:.4f} m (bar {0.03 * path:.3f}); track_ref_kf launches "
+          f"{by_site.get('track_ref_kf', 0)} (by path {by_site}), "
+          f"{len(records)} matching calls replayed with the plain version: "
+          f"equal {same} ({smi})", flush=True)
+    for name, ms in layers.items():
+        if ms:
+            print(f"[mono] layer {name}: {len(ms)} calls, median "
+                  f"{np.median(ms):.1f} ms, total {np.sum(ms):.0f} ms "
+                  f"({smi})", flush=True)
+    if eng.state != tracking.OK:
+        raise AssertionError(f"mono: the engine ended in state {eng.state}")
+    if not err < 0.03 * path:
+        raise AssertionError(f"mono: ATE {err} m (need < {0.03 * path})")
+    if not same:
+        raise AssertionError("mono: kernel and plain differ on "
+                             "track_ref_kf's live input")
+    return by_site, {"first": first, "used_h": used_h, "ate_m": err,
+                     "ms": float(np.median(frame_ms[first + 1:]))}
+
+
+def phase_bench_mono(smi):
+    """Phase 18: bench.py's mono leg (bench.py:199-231) on the port:
+    WindowedSlamEngine(MONOCULAR, window=4), loop closing on, the bench
+    world rendered gray along look_ahead_pose((0.18 i, 0, 0.04 i)), 28
+    warm-up frames, then two passes of 48, each ending in flush() and a
+    synchronize.  The world and frames come from a fresh default_rng(0)
+    (bench.py continues its stereo leg's generator).  fps per pass, ms
+    and keyframes a frame (bench.py's mono_kf_per_frame: inserted over
+    all frames), loops closed, the similarity-aligned ATE, launches by
+    site, every matching call that launched the kernel (track_ref_kf per
+    frame or in a window, match_for_sim3, reloc_attempt) replayed with the
+    plain version; then one more window under torch.profiler.  The engine
+    must not end LOST."""
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.runtime import tracking
+    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = mono_config()
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    n_m = MONO_WARMUP + 2 * MONO_PASS
+    # the leg's frames, then one window more for the profile
+    poses_gt = [synthetic.look_ahead_pose(np.array([0.18 * i, 0.0, 0.04 * i]))
+                for i in range(n_m + 4)]
+    t0 = time.perf_counter()
+    frames = [_u8(synthetic.render_world(world, cfg.camera, T, rng,
+                                         noise=1.0)) for T in poses_gt]
+    render_s = time.perf_counter() - t0
+    eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"bench-mono: the engine chose {eng.device}")
+    records, restore = _record_matches(
+        "track_ref_kf", "window/track_ref_kf", "match_for_sim3",
+        "reloc_attempt")
+    ht2.reset_launch_counts()          # the bench mono leg's count
+    try:
+        for i in range(MONO_WARMUP):
+            eng.track_monocular(frames[i], 0.1 * i)
+        torch.cuda.synchronize()
+        pass_fps, kf_counts, start = [], [], MONO_WARMUP
+        for _ in range(2):
+            kf0 = eng.stats["kf_inserted"]
+            t0 = time.perf_counter()
+            for i in range(start, start + MONO_PASS):
+                eng.track_monocular(frames[i], 0.1 * i)
+            eng.flush()
+            torch.cuda.synchronize()
+            pass_fps.append(MONO_PASS / (time.perf_counter() - t0))
+            kf_counts.append(eng.stats["kf_inserted"] - kf0)
+            start += MONO_PASS
+    finally:
+        restore()
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+    kf_per_frame = eng.stats["kf_inserted"] / n_m
+    err, n_tracked = mono_ate(eng, poses_gt[:n_m])
+    state = eng.state
+    same = _replay_plain(records)
+
+    def window():
+        for i in range(n_m, n_m + 4):
+            eng.track_monocular(frames[i], 0.1 * i)
+        eng.flush()
+
+    kf0 = eng.stats["kf_inserted"]
+    n_k, dev_ms, wall_ms = _profiled(window)
+    fps = float(np.median(pass_fps))
+    print(f"[bench-mono] {n_m} frames (rendered with 4 more in "
+          f"{render_s:.1f} s): pass fps {[round(f, 3) for f in pass_fps]}, "
+          f"median {fps:.3f} fps = {1e3 / fps:.1f} ms/frame, KFs per frame "
+          f"{kf_per_frame:.4f} (as bench.py: inserted over all {n_m}; per "
+          f"pass {kf_counts}), live KFs {eng.n_kfs}, loops closed "
+          f"{eng.stats['loops_closed']}, relocalized "
+          f"{eng.stats['reloc']}, tracked {n_tracked}, state {state}, "
+          f"similarity-aligned ATE {err:.4f} m; hamming_top2 launches by "
+          f"path {by_site}, {len(records)} matching calls replayed with the "
+          f"plain version: equal {same}; one window of 4 under the profiler "
+          f"({eng.stats['kf_inserted'] - kf0} keyframe(s)): "
+          f"{n_k / 4:.0f} kernels and {dev_ms / 4:.1f} ms of device time a "
+          f"frame ({wall_ms / 4:.1f} ms wall under the profiler; busy "
+          f"{100 * dev_ms / 4 * fps / 1e3:.1f}% of the unprofiled "
+          f"{1e3 / fps:.1f} ms) ({smi})", flush=True)
+    if state == tracking.LOST:
+        raise AssertionError("bench-mono: the engine ended LOST")
+    if not same:
+        raise AssertionError("bench-mono: kernel and plain differ on a "
+                             "live matching call")
+    return by_site, {"mono_fps": fps, "pass_fps": pass_fps,
+                     "kf_per_frame": kf_per_frame, "ate_m": err}
+
+
 def main():
     smi = phase_device()
     phase_build(smi)
@@ -1370,6 +1617,8 @@ def main():
         {"eng": weng, "frames": wframes, "poses": wposes}, smi)
     del eng, weng, wframes
     gba_times = phase_gba_solvers(smi)
+    mono_sites, mono = phase_mono_slice(smi)
+    bench_mono_sites, bench_mono = phase_bench_mono(smi)
     k = phase_kernel_times(smi, main_inputs)
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
                "reloc (phase 8)": reloc_sites,
@@ -1378,7 +1627,9 @@ def main():
                "bench LOC (phase 12)": loc_sites,
                "RGB-D slice (phase 13)": rgbd_sites,
                "bench RGB-D (phase 14)": bench_rgbd_sites,
-               "localization (phase 15)": localization_sites}
+               "localization (phase 15)": localization_sites,
+               "mono slice (phase 17)": mono_sites,
+               "bench mono (phase 18)": bench_mono_sites}
     print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
           f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
@@ -1386,7 +1637,12 @@ def main():
           f"SLAM {rgbd['rgbd_fps']:.3f} fps, ATE {rgbd['ate_m']:.4f} m; GBA "
           f"chunk at 512 KF slots: CG {gba_times['cg_ms']:.1f} ms / "
           f"{gba_times['cg_gib']:.3f} GiB, dense {gba_times['dense_ms']:.1f} "
-          f"ms / {gba_times['dense_gib']:.3f} GiB ({smi})", flush=True)
+          f"ms / {gba_times['dense_gib']:.3f} GiB; mono slice "
+          f"{mono['ms']:.1f} ms/frame, ATE {mono['ate_m']:.4f} m; mono SLAM "
+          f"{bench_mono['mono_fps']:.3f} fps (passes "
+          f"{[round(f, 3) for f in bench_mono['pass_fps']]}), "
+          f"{bench_mono['kf_per_frame']:.4f} KFs a frame ({smi})",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

@@ -1,10 +1,9 @@
 """Per-frame data: the tensor analogue of ``Frame``.
 
-Port of ``orbslam2_tpu/models/frame.py``: the stereo and RGB-D
-frontends (the mono frontend waits for its ROADMAP item).  The JAX
-version vmaps the extractor over the L/R pair; here the pair is a
-two-iteration loop, and each image's pyramid is built once and shared by
-extraction and stereo.
+Port of ``orbslam2_tpu/models/frame.py``: the stereo, RGB-D and mono
+frontends.  The JAX version vmaps the extractor over the L/R pair; here
+the pair is a two-iteration loop, and each image's pyramid is built once
+and shared by extraction and stereo.
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from orbslam2_tpu_torch.config import RGBD, SlamConfig
+from orbslam2_tpu_torch.config import MONOCULAR, RGBD, SlamConfig
 from orbslam2_tpu_torch.ops import extractor, image as image_ops
 from orbslam2_tpu_torch.ops import stereo as stereo_ops
 from orbslam2_tpu_torch.utils import camera as cam_mod
@@ -77,9 +76,31 @@ def make_frontend_rgbd(cfg: SlamConfig):
     return frontend
 
 
+def make_frontend_mono(cfg: SlamConfig):
+    """A float32 [H, W] gray tensor → FrameData with no depth channel:
+    ``ur`` and ``depth`` are −1 (mono Frame ctor, Frame.cc:175)."""
+    cam = cam_mod.Camera.from_config(cfg.camera)
+    orb = cfg.orb
+
+    def frontend(gray: torch.Tensor) -> FrameData:
+        pyr = image_ops.build_pyramid(gray, orb.n_levels, orb.scale_factor)
+        f = extractor.extract(pyr, orb)
+        xy_und = (cam_mod.undistort_points(cam, f.xy)
+                  if cfg.camera.has_distortion else f.xy)
+        neg = torch.full((f.xy.shape[0],), -1.0, dtype=torch.float32,
+                         device=f.xy.device)
+        return FrameData(xy=xy_und, xy_raw=f.xy, level=f.level,
+                         angle=f.angle, response=f.response, valid=f.valid,
+                         desc=f.desc, ur=neg, depth=neg.clone())
+
+    return frontend
+
+
 def make_frontend(cfg: SlamConfig):
     """The sensor's frontend: called with a (left, right) pair for stereo,
-    a (gray, depth) pair for RGB-D."""
+    a (gray, depth) pair for RGB-D, a 1-tuple (gray,) for mono."""
     if cfg.sensor == RGBD:
         return make_frontend_rgbd(cfg)
+    if cfg.sensor == MONOCULAR:
+        return make_frontend_mono(cfg)
     return make_frontend_stereo(cfg)

@@ -166,6 +166,31 @@ def match_descriptors(
     return resolve_duplicates(match, best, desc_b.shape[0]), best
 
 
+def search_for_initialization(
+    xy_a: torch.Tensor, desc_a: torch.Tensor, valid_a: torch.Tensor,
+    level_a: torch.Tensor, xy_b: torch.Tensor, desc_b: torch.Tensor,
+    valid_b: torch.Tensor, level_b: torch.Tensor, angle_a: torch.Tensor,
+    angle_b: torch.Tensor, window: float = 100.0, nn_ratio: float = 0.9,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ORBmatcher::SearchForInitialization (ORBmatcher.cc:400): level-0
+    features of the two bootstrap frames within ``window`` px in u and v,
+    best and second best, ratio test, rotation histogram, one source per
+    target.  Plain PyTorch over the full [A, B] matrix: the pairwise
+    window gate keeps it off ``hamming_top2``.  Returns (a→b index [A],
+    distance [A])."""
+    d = hamming.masked_hamming_matrix(desc_a, valid_a, desc_b, valid_b)
+    du = torch.abs(xy_a[:, 0:1] - xy_b[None, :, 0])
+    dv = torch.abs(xy_a[:, 1:2] - xy_b[None, :, 1])
+    gate = ((du < window) & (dv < window)
+            & (level_a[:, None] == 0) & (level_b[None, :] == 0))
+    d = torch.where(gate, d, torch.full_like(d, hamming.MAX_DIST))
+    best, best_idx, second = best_and_second(d)
+    ok = (best <= TH_LOW) & (best < nn_ratio * second.to(torch.float32))
+    ok = rotation_consistency_mask(angle_a, angle_b[best_idx], ok)
+    match = torch.where(ok, best_idx, NO_MATCH)
+    return resolve_duplicates(match, best, desc_b.shape[0]), best
+
+
 def search_for_triangulation(
     cam: cam_mod.Camera, T1w: torch.Tensor, T2w: torch.Tensor,
     kp1_xy, kp1_level, kp1_desc, kp1_free,

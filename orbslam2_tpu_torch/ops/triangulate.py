@@ -24,17 +24,21 @@ from orbslam2_tpu_torch.utils.index import scatter_set
 
 def triangulate_dlt(P1: torch.Tensor, P2: torch.Tensor, uv1: torch.Tensor,
                     uv2: torch.Tensor) -> torch.Tensor:
-    """Inhomogeneous linear triangulation: P1/P2 [3, 4], uv [N, 2] →
-    [N, 3] world points via the 3×3 normal equations (w = 1)."""
-    A = torch.stack([uv1[:, 0:1] * P1[2] - P1[0],
-                     uv1[:, 1:2] * P1[2] - P1[1],
-                     uv2[:, 0:1] * P2[2] - P2[0],
-                     uv2[:, 1:2] * P2[2] - P2[1]], dim=1)       # [N, 4, 4]
-    B = A[:, :, :3]
-    b = -A[:, :, 3]
-    BtB = torch.sum(B[:, :, :, None] * B[:, :, None, :], dim=1)
-    Btb = torch.sum(B * b[:, :, None], dim=1)
-    return torch.sum(inv3x3(BtB) * Btb[:, None, :], dim=-1)
+    """Inhomogeneous linear triangulation: P1/P2 [..., 3, 4], uv [N, 2] →
+    [..., N, 3] world points via the 3×3 normal equations (w = 1); the
+    leading dimensions of P1 and P2 broadcast (the mono initializer
+    triangulates under 12 motion hypotheses at once)."""
+    def rows(P, uv):
+        p0, p1, p2 = (P[..., r, None, :] for r in range(3))
+        return uv[:, 0:1] * p2 - p0, uv[:, 1:2] * p2 - p1
+
+    A = torch.stack(torch.broadcast_tensors(*rows(P1, uv1), *rows(P2, uv2)),
+                    dim=-2)                                    # [..., N, 4, 4]
+    B = A[..., :3]
+    b = -A[..., 3]
+    BtB = torch.sum(B[..., :, None] * B[..., None, :], dim=-3)
+    Btb = torch.sum(B * b[..., None], dim=-2)
+    return torch.sum(inv3x3(BtB) * Btb[..., None, :], dim=-1)
 
 
 class TriangulationResult(NamedTuple):

@@ -1,21 +1,22 @@
 """Per-frame tracking steps: the numeric half of ``Tracking``.
 
-Port of ``orbslam2_tpu/runtime/tracking.py`` for the depth sensors
-(stereo, RGB-D): ``init_stereo``, ``track_body`` (motion-model stage
-with the ×2 widen retry, then the local-map stage), ``track_loc_body``
-(localization mode: temporal VO points and the mbVO dual path),
+Port of ``orbslam2_tpu/runtime/tracking.py``: ``init_stereo`` and the
+mono bootstrap (``mono_match``, ``mono_build``), ``track_body``
+(motion-model stage with the ×2 widen retry, then the local-map stage),
+``track_loc_body`` (localization mode: temporal VO points and the mbVO
+dual path),
 ``track_ref_kf`` (the TrackReferenceKeyFrame fallback, which reaches the
 ``hamming_top2`` kernel through ``match_descriptors``),
 ``insert_keyframe_body`` and ``apply_counters``.  Each step keeps the
 40-float ``Summary`` layout, so the host state machine reads one small
 tensor per call.
 
-The mono bootstrap and ``pose_covariance`` wait for their ROADMAP items.
+``pose_covariance`` waits for its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ import torch
 from orbslam2_tpu_torch.config import MONOCULAR, SlamConfig
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.models.frame import FrameData
+from orbslam2_tpu_torch.ops import initializer as init_mod
 from orbslam2_tpu_torch.ops import matching, pose_opt
 from orbslam2_tpu_torch.ops.hamming_top2 import launch_site
 from orbslam2_tpu_torch.utils import camera as cam_mod
@@ -110,6 +112,8 @@ def _pose_obs_from_assoc(ms: M.MapState, fd: FrameData, assoc: torch.Tensor,
 
 class TrackingFns(NamedTuple):
     init_stereo: object
+    mono_match: object
+    mono_build: object
     track: object
     track_body: object
     track_loc_body: object
@@ -156,6 +160,67 @@ def make_tracking_fns(cfg: SlamConfig) -> TrackingFns:
         feat_idx = torch.arange(N, device=dev)
         ms = M.add_observations(ms, 0, feat_idx, assoc, ok, sf, nl)
         return ms, assoc, count(ok)
+
+    # ------------------------------------------------------ mono bootstrap
+    def mono_match(ref: FrameData, cur: FrameData):
+        """SearchForInitialization between the held reference frame and the
+        current one (Tracking.cc:695).  Returns (ref → cur index [N],
+        number of matches)."""
+        m, _ = matching.search_for_initialization(
+            ref.xy, ref.desc, ref.valid, ref.level,
+            cur.xy, cur.desc, cur.valid, cur.level,
+            ref.angle, cur.angle, window=100.0, nn_ratio=0.9)
+        return m, count(m >= 0)
+
+    def mono_build(ms: M.MapState, ref: FrameData, cur: FrameData,
+                   m: torch.Tensor, frame_id_ref: int, frame_id_cur: int,
+                   ts_ref: float, ts_cur: float,
+                   generator: Optional[torch.Generator] = None,
+                   idx: Optional[torch.Tensor] = None):
+        """The H/F initializer and, when it succeeds, the two-keyframe map
+        at the median-depth scale (CreateInitialMapMonocular,
+        Tracking.cc:736-811): KF0 at identity, KF1 at the recovered pose,
+        a point for every good triangulation.  ``idx`` [200, 8] replaces
+        the generator's draws.  Returns (ms, ok, Tcw2, assoc_cur,
+        n_points), all tensors."""
+        dev = ref.xy.device
+        ok_m = m >= 0
+        msafe = torch.where(ok_m, m, 0).long()
+        res = init_mod.initialize_mono(cam, ref.xy, cur.xy[msafe], ok_m,
+                                       generator, idx=idx)
+        # median-depth normalisation, with jnp.nanmedian's even-count mean
+        med = init_mod.nanmedian(torch.where(res.good, res.points[:, 2],
+                                             float("nan")))
+        scale = 1.0 / torch.clamp(torch.where(torch.isnan(med), 1.0, med),
+                                  min=1e-6)
+        pts = res.points * scale
+        T2 = res.Tcw2.clone()
+        T2[:3, 3] = T2[:3, 3] * scale
+
+        good = res.good & res.ok
+        slots = torch.where(good, torch.cumsum(good.to(torch.int32), 0) - 1,
+                            0).to(torch.int32)
+        ms = M.add_map_points(ms, slots, pts, good,
+                              ref_kf=torch.zeros(N, dtype=torch.int32,
+                                                 device=dev))
+        assoc_ref = torch.where(good, slots, M.NO_MP).to(torch.int32)
+        feat_idx = torch.arange(N, device=dev)
+        ms = M.add_keyframe(ms, 0, torch.eye(4, device=dev), frame_id_ref,
+                            ts_ref, ref.xy, ref.level, ref.angle, ref.desc,
+                            ref.valid, ref.ur, ref.depth, assoc_ref,
+                            parent=-1)
+        ms = M.add_observations(ms, 0, feat_idx, assoc_ref, good, sf, nl)
+        # KF1: the reference's points through the match indices
+        assoc_cur = scatter_set(
+            torch.full((N,), M.NO_MP, dtype=torch.int32, device=dev), msafe,
+            assoc_ref, good)
+        ms = M.add_keyframe(ms, 1, T2, frame_id_cur, ts_cur, cur.xy,
+                            cur.level, cur.angle, cur.desc, cur.valid,
+                            cur.ur, cur.depth, assoc_cur, parent=0)
+        ms = M.add_observations(ms, 1, feat_idx, assoc_cur, assoc_cur >= 0,
+                                sf, nl)
+        n_pts = count(good)
+        return ms, res.ok & (n_pts > 0), T2, assoc_cur, n_pts
 
     # --------------------------------------------------------------- track
     def _ref_tracked(ms, ref_kf, min_obs):
@@ -415,7 +480,8 @@ def make_tracking_fns(cfg: SlamConfig) -> TrackingFns:
             mp_visible=ms.mp_visible + visible_mask.to(torch.int32),
             mp_found=ms.mp_found + found_mask.to(torch.int32))
 
-    return TrackingFns(init_stereo=init_stereo, track=track,
+    return TrackingFns(init_stereo=init_stereo, mono_match=mono_match,
+                       mono_build=mono_build, track=track,
                        track_body=track_body, track_loc_body=track_loc_body,
                        track_ref_kf=track_ref_kf,
                        insert_keyframe_body=insert_keyframe_body,

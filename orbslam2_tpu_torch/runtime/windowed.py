@@ -1,7 +1,7 @@
 """Windowed SLAM engine: W tracked frames per window.
 
-Port of ``orbslam2_tpu/runtime/windowed.py`` for the depth sensors
-(stereo pairs, RGB-D gray and depth).  A window tracks W frames in a row
+Port of ``orbslam2_tpu/runtime/windowed.py`` (stereo pairs, RGB-D gray
+and depth, mono gray).  A window tracks W frames in a row
 against one map: frontend,
 constant-velocity prediction, the two-stage track with its ×2 widen
 retry, and the TrackReferenceKeyFrame fallback, all inside the window.
@@ -33,7 +33,12 @@ fallback is a host branch on the frame's inlier count.  Initialization,
 LOST and relocalization go through the per-frame engine.  In
 localization mode windows still track with ``track_body``; only the
 keyframe decision at the retire is skipped (JAX ``windowed.py:415``).
-Mono raises in the base engine.
+
+Mono has no cross-window pipeline: its map points appear only at
+keyframe inserts, so a window is retired before the next is dispatched,
+and after an in-window insert the window's later frames are tracked
+again, one by one, against the new map (JAX ``windowed.py:254-263,
+419-431``).
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from typing import List, NamedTuple, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from orbslam2_tpu_torch.config import SlamConfig
+from orbslam2_tpu_torch.config import MONOCULAR, SlamConfig
 from orbslam2_tpu_torch.models import frame as frame_mod
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.ops.hamming_top2 import launch_site
@@ -66,9 +71,9 @@ class SlamWindowOut(NamedTuple):
 
 def make_slam_window_tracker(cfg: SlamConfig, window: int):
     """track_window(ms, pairs, state_T, assoc0, inlier0, ref_kf) →
-    SlamWindowOut, for ``window`` frames, each the sensor's pair of
+    SlamWindowOut, for ``window`` frames, each the sensor's tuple of
     float32 [H, W] tensors on the map's device: (left, right) for
-    stereo, (gray, depth) for RGB-D."""
+    stereo, (gray, depth) for RGB-D, (gray,) for mono."""
     fns = tracking.make_tracking_fns(cfg)
     frontend = frame_mod.make_frontend(cfg)
     th_local = cfg.tracking.local_map_tracking_threshold
@@ -137,10 +142,11 @@ def make_window_mapping_step(cfg: SlamConfig):
 
 
 class WindowedSlamEngine(SlamEngine):
-    """Stereo / RGB-D SLAM engine tracking in windows of ``window`` frames.
+    """Stereo / RGB-D / mono SLAM engine tracking in windows of ``window``
+    frames.
 
-    ``track_stereo`` / ``track_rgbd`` buffer frames and return the most
-    recently retired
+    ``track_stereo`` / ``track_rgbd`` / ``track_monocular`` buffer frames
+    and return the most recently retired
     pose (up to 2·window − 1 frames behind; None until the first window
     retires).  :meth:`flush` retires what is in flight; ``frame_poses``
     and ``finish_gba`` flush first.  Runs on the CUDA card unless
@@ -173,9 +179,21 @@ class WindowedSlamEngine(SlamEngine):
             return super().track_rgbd(gray, depth, timestamp)
         return self._push(self._upload_rgbd(gray, depth), timestamp)
 
+    def track_monocular(self, gray, timestamp: float):
+        if self.state != tracking.OK:
+            return super().track_monocular(gray, timestamp)
+        return self._push(self._upload_mono(gray), timestamp)
+
     def _push(self, pair, timestamp: float):
         self._buf.append((pair, timestamp))
-        if len(self._buf) >= self.window:
+        if len(self._buf) >= self.window and self.cfg.sensor == MONOCULAR:
+            # no cross-window pipeline for mono: its points appear only at
+            # keyframe inserts, so a window tracked against the map before
+            # the last window's inserts runs out of points under motion
+            buf, self._buf = self._buf, []
+            self._pending = self._dispatch_window(buf)
+            self._retire_pending()
+        elif len(self._buf) >= self.window:
             buf, self._buf = self._buf, []
             # dispatch window k+1 from window k's carried outputs, THEN
             # retire window k: tracking runs against a map one window
@@ -328,6 +346,22 @@ class WindowedSlamEngine(SlamEngine):
                     and self._need_new_keyframe(sm, ref_override)):
                 self._create_window_keyframe(out, j, ts)
                 ref_override = sm.n_inliers_map
+                if self.cfg.sensor == MONOCULAR and j + 1 < len(buf):
+                    # mono: the window's later frames were tracked against
+                    # the map before this insert, which lacks its new
+                    # points: track them again, one by one, from the new
+                    # keyframe's points (the window's reference slot is
+                    # released first, so that a cull during the re-runs
+                    # frees it)
+                    self.frame_id += 1
+                    self._window_done(ref_at_track)
+                    self.last_assoc = self.ms.kf_mp[self.ref_kf]
+                    self.last_inlier = torch.ones_like(self.last_inlier)
+                    self._pending_counters = None
+                    for pair2, ts2 in buf[j + 1:]:
+                        self._last_retired = super()._track_common(pair2,
+                                                                   ts2)
+                    return
             self.frame_id += 1
         self._window_done(ref_at_track)
         self.state = tracking.OK

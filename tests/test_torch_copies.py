@@ -1,5 +1,6 @@
 """The port's copies of the numpy-only modules (config, BRIEF pattern,
-synthetic scenes) stay equal to the JAX package's originals."""
+synthetic scenes, trajectory export and ATE) stay equal to the JAX
+package's originals."""
 
 import dataclasses
 
@@ -10,9 +11,11 @@ import torch
 from orbslam2_tpu import config as jconfig
 from orbslam2_tpu.ops import pattern as jpattern
 from orbslam2_tpu.utils import synthetic as jsynthetic
+from orbslam2_tpu.utils import trajectory as jtrajectory
 from orbslam2_tpu_torch import config as tconfig
 from orbslam2_tpu_torch.ops import pattern as tpattern
 from orbslam2_tpu_torch.utils import synthetic as tsynthetic
+from orbslam2_tpu_torch.utils import trajectory as ttrajectory
 
 torch.set_num_threads(2)
 
@@ -55,3 +58,33 @@ def test_synthetic_world_images_identical():
                                             np.random.default_rng(5), 1.0)
     np.testing.assert_array_equal(lj, lt)
     np.testing.assert_array_equal(rj, rt)
+
+
+def test_trajectory_copy_identical(tmp_path):
+    """Same source below the copy's header, and the same numbers: the
+    similarity-aligned ATE (mono's), its alignment, centres, and the TUM
+    and KITTI files."""
+    src_j = open(jtrajectory.__file__).read()
+    src_t = open(ttrajectory.__file__).read()
+    assert src_t.endswith(src_j)
+    rng = np.random.default_rng(4)
+    poses = [jsynthetic.look_ahead_pose(rng.normal(0, 2, 3),
+                                        yaw=rng.normal(0, 0.3))
+             for _ in range(9)]
+    poses[3] = None
+    est = rng.normal(0, 3, (20, 3))
+    gt = 1.7 * est @ np.linalg.qr(rng.normal(size=(3, 3)))[0].T + 0.3
+    for align, with_scale in ((False, False), (True, False), (True, True)):
+        assert (ttrajectory.ate_rmse(est, gt, align, with_scale)
+                == jtrajectory.ate_rmse(est, gt, align, with_scale))
+    for a, b in zip(ttrajectory.umeyama(est, gt),
+                    jtrajectory.umeyama(est, gt)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ttrajectory.centers_from_poses(poses),
+                                  jtrajectory.centers_from_poses(poses))
+    for name, save, args in (("tum", "save_tum", (np.arange(9) * 0.1, poses)),
+                             ("kitti", "save_kitti", (poses,))):
+        getattr(ttrajectory, save)(str(tmp_path / f"t.{name}"), *args)
+        getattr(jtrajectory, save)(str(tmp_path / f"j.{name}"), *args)
+        assert ((tmp_path / f"t.{name}").read_text()
+                == (tmp_path / f"j.{name}").read_text())

@@ -382,3 +382,90 @@ def test_segment_sums_do_not_change_from_run_to_run():
     want = torch.zeros(m, dtype=torch.int32, device="cuda").index_add_(
         0, idx[ok], ints[ok])
     assert torch.equal(got, want)
+
+
+def _two_view_f_scene(seed=0):
+    """Two views of a general 3D scene (tests/test_mono.py's F scene, made
+    with numpy): matched pixels with 0.4 px noise and the in-image mask."""
+    from orbslam2_tpu_torch.utils import lie
+
+    rng = np.random.default_rng(seed)
+    n = 300
+    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
+                    rng.uniform(5, 25, n)], -1)
+    R = lie.so3_exp(torch.tensor([0.02, -0.05, 0.01])).numpy()
+    t = np.array([0.6, 0.05, 0.1])
+    uv1 = pts[:, :2] / pts[:, 2:] * 450 + [320, 240]
+    pc2 = pts @ R.T + t
+    uv2 = pc2[:, :2] / pc2[:, 2:] * 450 + [320, 240]
+    uv1 = uv1 + rng.normal(0, 0.4, uv1.shape)
+    uv2 = uv2 + rng.normal(0, 0.4, uv2.shape)
+    inb = ((uv2[:, 0] > 0) & (uv2[:, 0] < 640)
+           & (uv2[:, 1] > 0) & (uv2[:, 1] < 480))
+    idx = rng.choice(np.flatnonzero(inb), (200, 8))
+    return (torch.from_numpy(uv1.astype(np.float32)),
+            torch.from_numpy(uv2.astype(np.float32)),
+            torch.from_numpy(inb), torch.from_numpy(idx))
+
+
+def test_initialize_mono_on_the_card_matches_the_cpu():
+    """The H/F initializer on the card (cuSOLVER's batched SVD and eigh)
+    against the port on the CPU (LAPACK) with the same draws: the same
+    decision and model, Tcw2 within 5e-4, the good mask ≥ 99% equal."""
+    from orbslam2_tpu_torch.config import CameraConfig
+    from orbslam2_tpu_torch.ops import initializer
+    from orbslam2_tpu_torch.utils import camera as cam_mod
+
+    cam = cam_mod.Camera.from_config(CameraConfig(
+        fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640, height=480))
+    p1, p2, valid, idx = _two_view_f_scene()
+    cpu = initializer.initialize_mono(cam, p1, p2, valid, idx=idx)
+    gpu = initializer.initialize_mono(cam, p1.cuda(), p2.cuda(),
+                                      valid.cuda(), idx=idx.cuda())
+    torch.cuda.synchronize()
+    assert bool(cpu.ok) and bool(gpu.ok)
+    assert bool(cpu.used_h) == bool(gpu.used_h) is False
+    assert torch.allclose(gpu.Tcw2.cpu(), cpu.Tcw2, atol=5e-4, rtol=0)
+    assert (gpu.good.cpu() == cpu.good).float().mean() >= 0.99
+
+
+def test_mono_track_ref_kf_launches_the_kernel_and_equals_plain():
+    """TrackReferenceKeyFrame on a mono map bootstrapped on the card
+    (bench.py's mono walk, 1000 features): one launch attributed to
+    track_ref_kf, and the same associations and pose as the plain
+    version."""
+    from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                           MONOCULAR, OrbConfig, SlamConfig)
+    from orbslam2_tpu_torch.runtime.slam import SlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640,
+                       height=480, fps=10.0)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=1000),
+                     capacity=CapacityConfig(max_keyframes=16,
+                                             max_map_points=4096,
+                                             local_ba_keyframes=8,
+                                             local_ba_points=1024),
+                     sensor=MONOCULAR)
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    eng = SlamEngine(cfg, enable_loop_closing=False)
+    for i in range(5):
+        T = synthetic.look_ahead_pose(np.array([0.18 * i, 0.0, 0.04 * i]))
+        g = synthetic.render_world(world, cam, T, rng, noise=1.0)
+        eng.track_monocular(np.clip(g, 0, 255).astype(np.uint8), 0.1 * i)
+    assert eng.state == 2 and eng.last_fd is not None, eng.stats
+    Tcw = torch.as_tensor(eng.last_Tcw, device="cuda")
+    before = tk.hamming_top2.launches_by_site.get("track_ref_kf", 0)
+    res = eng.fns.track_ref_kf(eng.ms, eng.last_fd, eng.ref_kf, Tcw)
+    torch.cuda.synchronize()
+    assert tk.hamming_top2.launches_by_site.get("track_ref_kf", 0) == \
+        before + 1
+    matching.hamming_top2 = tk.hamming_top2_reference
+    try:
+        res_p = eng.fns.track_ref_kf(eng.ms, eng.last_fd, eng.ref_kf, Tcw)
+    finally:
+        matching.hamming_top2 = tk.hamming_top2
+    assert torch.equal(res.assoc, res_p.assoc)
+    assert torch.equal(res.Tcw, res_p.Tcw)
+    assert int((res.assoc >= 0).sum()) >= 50

@@ -1,11 +1,12 @@
 """The port's stateful entry points run on the CUDA card by default.
 
-``SlamEngine(cfg)``, ``WindowedSlamEngine(cfg)`` (stereo and RGB-D),
+``SlamEngine(cfg)``, ``WindowedSlamEngine(cfg)`` (stereo, RGB-D and mono),
 ``LoopCloser(cfg, voc)`` and ``streaming.make_window_tracker(cfg, window)``
 with no ``device`` take the card, and raise where torch has no CUDA
 device (forced here with ``monkeypatch``, so the tests mean the same on a
 host with a card); an explicit ``device="cpu"`` builds them on the CPU.
-``track_rgbd`` uploads its frame to the engine's device."""
+``track_rgbd`` and ``track_monocular`` upload their frame to the engine's
+device."""
 
 import pytest
 import torch
@@ -15,7 +16,8 @@ import dataclasses
 import numpy as np
 
 from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
-                                       OrbConfig, RGBD, STEREO, SlamConfig)
+                                       MONOCULAR, OrbConfig, RGBD, STEREO,
+                                       SlamConfig)
 from orbslam2_tpu_torch.models import vocabulary as voc_mod
 from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.runtime import streaming
@@ -35,6 +37,7 @@ CFG = SlamConfig(
 
 
 RGBD_CFG = dataclasses.replace(CFG, sensor=RGBD)
+MONO_CFG = dataclasses.replace(CFG, sensor=MONOCULAR)
 
 
 def _build(entry, **kw):
@@ -46,6 +49,10 @@ def _build(entry, **kw):
         return SlamEngine(RGBD_CFG, **kw)
     if entry == "WindowedSlamEngine(RGBD)":
         return WindowedSlamEngine(RGBD_CFG, **kw)
+    if entry == "SlamEngine(MONO)":
+        return SlamEngine(MONO_CFG, **kw)
+    if entry == "WindowedSlamEngine(MONO)":
+        return WindowedSlamEngine(MONO_CFG, **kw)
     if entry == "make_window_tracker":
         return streaming.make_window_tracker(CFG, 2, **kw)
     voc = voc_mod.default_vocabulary(k=CFG.capacity.vocab_k,
@@ -55,7 +62,8 @@ def _build(entry, **kw):
 
 ENTRIES = ["SlamEngine", "LoopCloser", "WindowedSlamEngine",
            "make_window_tracker", "SlamEngine(RGBD)",
-           "WindowedSlamEngine(RGBD)"]
+           "WindowedSlamEngine(RGBD)", "SlamEngine(MONO)",
+           "WindowedSlamEngine(MONO)"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -99,3 +107,19 @@ def test_track_rgbd_uploads_to_the_engine_device(entry, monkeypatch):
     assert g.device.type == d.device.type == "meta"
     assert g.dtype == d.dtype == torch.float32
     assert tuple(g.shape) == tuple(d.shape) == (240, 320)
+
+
+@pytest.mark.parametrize("entry", ["SlamEngine(MONO)",
+                                   "WindowedSlamEngine(MONO)"])
+def test_track_monocular_uploads_to_the_engine_device(entry, monkeypatch):
+    """The mono frame goes to the engine's device as a 1-tuple: uint8 gray
+    → float32.  ``meta`` stands in for the card here."""
+    eng = _build(entry, device="cpu")
+    eng.device = torch.device("meta")
+    seen = []
+    monkeypatch.setattr(eng, "_track_common",
+                        lambda pair, ts: seen.append(pair))
+    eng.track_monocular(np.full((240, 320), 7, np.uint8), 0.0)
+    (g,), = seen
+    assert g.device.type == "meta" and g.dtype == torch.float32
+    assert tuple(g.shape) == (240, 320)

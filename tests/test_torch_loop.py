@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from orbslam2_tpu.config import STEREO, SlamConfig
+from orbslam2_tpu.config import MONOCULAR, STEREO, SlamConfig
 from orbslam2_tpu.models import keyframe_db as jdb
 from orbslam2_tpu.models import map_state as JM
 from orbslam2_tpu.models import vocabulary as jvoc
@@ -559,11 +559,19 @@ def test_optimize_pose_graph_matches_jax(fix_scale):
         np.asarray(jpg.se3_from_sim3(js, jR, jt)), atol=1e-3)
 
 
-def test_correct_loop_and_fuse_match_jax(built):
+@pytest.mark.parametrize("s12", [1.0, 1.1], ids=["s12=1.0", "s12=1.1"])
+def test_correct_loop_and_fuse_match_jax(built, s12):
     """A loop edge between the newest keyframe and keyframe 0 carrying a
     2 cm / 0.5° correction: essential graph, point correction, then
-    SearchAndFuse on the corrected map."""
-    b = built
+    SearchAndFuse on the corrected map.  With a scale (s12 = 1.1) both
+    packages' loop functions are made for mono, whose pose graph frees the
+    scale (fix_scale=False), as mono's loops need."""
+    b = dict(built)
+    if s12 != 1.0:
+        b["jf"] = jlc.make_loop_fns(
+            dataclasses.replace(b["cfg"], sensor=MONOCULAR), b["voc"])
+        b["tf"] = tlc.make_loop_fns(
+            dataclasses.replace(b["tcfg"], sensor=tconfig.MONOCULAR), b["tv"])
     ms, tms = b["ms"], b["tms"]
     kf_cur, kf_loop = b["live"][-1], b["live"][0]
     T12 = np.asarray(ms.kf_pose[kf_cur]) @ np.linalg.inv(
@@ -571,7 +579,7 @@ def test_correct_loop_and_fuse_match_jax(built):
     dT = np.asarray(jlie.se3_exp(jnp.asarray(
         [0.0, 0.009, 0.0, 0.02, 0.0, 0.01], jnp.float32)))
     T12 = (dT @ T12).astype(np.float32)
-    s12, R12, t12 = np.float32(1.0), T12[:3, :3], T12[:3, 3]
+    s12, R12, t12 = np.float32(s12), T12[:3, :3], T12[:3, 3]
     pl_i = np.array([kf_cur] + [0] * 7, np.int32)
     pl_j = np.array([b["live"][1]] + [0] * 7, np.int32)
     pl_ok = np.array([True] + [False] * 7)

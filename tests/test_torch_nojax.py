@@ -7,9 +7,11 @@ then relocalization from LOST), then through ``WindowedSlamEngine`` in
 windows of two and one LOC window of ``streaming.make_window_tracker``,
 then RGB-D frames through ``SlamEngine.track_rgbd`` and
 ``WindowedSlamEngine.track_rgbd``, each then in localization mode (the
-VO path, relocalization from LOST, windows that insert nothing), and a
-GBA chunk past 256 keyframe slots (the CG solver), and check that
-nothing of jax or ``orbslam2_tpu`` was loaded.
+VO path, relocalization from LOST, windows that insert nothing), a
+GBA chunk past 256 keyframe slots (the CG solver), and mono frames of
+bench.py's mono walk through ``SlamEngine.track_monocular`` and
+``WindowedSlamEngine.track_monocular`` (the H/F initializer, then one
+window), and check that nothing of jax or ``orbslam2_tpu`` was loaded.
 Also: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -109,6 +111,34 @@ chunk, _ = gba.make_gba_fns(big)
 ms2, inl = chunk(beng.ms, torch.ones(264 * beng.ms.N, dtype=torch.bool),
                  True)
 assert bool(torch.isfinite(ms2.kf_pose).all())
+from orbslam2_tpu_torch.config import MONOCULAR
+from orbslam2_tpu_torch.utils import trajectory
+mcam = dataclasses.replace(cam, fx=450.0, fy=450.0, cx=320.0, cy=240.0,
+                           bf=0.0, width=640, height=480)
+mcfg = dataclasses.replace(cfg, camera=mcam, orb=OrbConfig(n_features=1000),
+                           capacity=CapacityConfig(max_keyframes=8,
+                                                   max_map_points=2048,
+                                                   local_ba_keyframes=4,
+                                                   local_ba_points=512),
+                           sensor=MONOCULAR)
+mrng = np.random.default_rng(0)
+mworld = synthetic.make_world(mrng)
+mposes = [synthetic.look_ahead_pose(np.array([0.18 * i, 0.0, 0.04 * i]))
+          for i in range(7)]
+mframes = [np.clip(synthetic.render_world(mworld, mcam, T, mrng, noise=1.0),
+                   0, 255).astype(np.uint8) for T in mposes]
+meng = SlamEngine(mcfg, enable_loop_closing=False, device="cpu")
+mout = [meng.track_monocular(g, 0.1 * i) for i, g in enumerate(mframes[:4])]
+assert meng.state == 2 and mout[-1] is not None, (meng.state, meng.stats)
+mweng = WindowedSlamEngine(mcfg, enable_loop_closing=False, device="cpu",
+                           window=4)
+for i, g in enumerate(mframes):
+    mweng.track_monocular(g, 0.1 * i)
+mest = [T for T in mweng.frame_poses() if T is not None]
+assert mweng.state == 2 and len(mest) >= 4, (mweng.state, mweng.stats)
+gt = trajectory.centers_from_poses(mposes[-len(mest):])
+assert trajectory.ate_rmse(trajectory.centers_from_poses(mest), gt,
+                           align=True, with_scale=True) < 0.05
 bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
              or m.startswith("orbslam2_tpu.")
              or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
