@@ -97,6 +97,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  matching call that launched the kernel replayed with the
                  plain version), one window under torch.profiler; must
                  not end LOST;
+ 19. system    — the System facade (runtime/system.py) at the bench widths,
+                 loop closing on, no device given: track_stereo over the
+                 first 24 frames of phase 4's shaken corridor (median ms a
+                 frame); the TUM, KITTI and keyframe-TUM savers' line
+                 counts; the pose covariance (6×6, symmetric, eigenvalues
+                 ≥ −1e-8) and its world-frame form (the same spectrum);
+                 save_map (ms, MB) and the file read back on the card bit
+                 for bit (load_map ms); a fresh System with map_file set
+                 starts LOST in localization mode, relocalizes a re-render
+                 of frame 8 within 0.1 m, launching hamming_top2 from
+                 reloc_attempt (that call replayed with the plain
+                 version), and one more frame leaves the map as it was;
+                 change_calibration to slightly other intrinsics and 4
+                 frames more; System(RGBD).track_ird over 6 frames of
+                 phase 13's depth corridor (HPose within 0.15 m of the
+                 remapped truth); tools.replay.run_synthetic_stereo at the
+                 default capacity (median and mean ms); track_ref_kf's
+                 matching calls replayed with the plain version;
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
@@ -104,7 +122,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  launch (torch.profiler, ``device_ms``; run last so that no
                  profiler session precedes a timed phase) against its
                  bound.
-Phases run in the order 1-8, 10-18, 9.  Every time printed carries the
+Phases run in the order 1-8, 10-19, 9.  Every time printed carries the
 card's name and power limit.  The line before the last is the kernels'
 JSON record (launches per path); the last line is {"ok": true,
 "device": {...}}.  Imports nothing of JAX.
@@ -1593,6 +1611,241 @@ def phase_bench_mono(smi):
                      "kf_per_frame": kf_per_frame, "ate_m": err}
 
 
+# phase 19: the System facade (orbslam2_tpu_torch/runtime/system.py)
+SYS_FRAMES, SYS_RELOC_FRAME = 24, 8
+SYS_CALIB_FRAMES, IRD_FRAMES, REPLAY_FRAMES = 4, 6, 24
+IRD_BAR = 0.15                 # HPose world position against the truth, m
+
+
+def _write_settings(path, cam):
+    """A settings file with ``cam``'s intrinsics, in the form of
+    tests/test_system.py:163-175."""
+    with open(path, "w") as f:
+        f.write(f"%YAML:1.0\nCamera.fx: {cam.fx}\nCamera.fy: {cam.fy}\n"
+                f"Camera.cx: {cam.cx}\nCamera.cy: {cam.cy}\n"
+                f"Camera.bf: {cam.bf}\nCamera.fps: {cam.fps}\n"
+                f"Camera.width: {cam.width}\nCamera.height: {cam.height}\n"
+                f"ThDepth: {cam.th_depth}\n")
+
+
+def phase_system(smi, frames):
+    """Phase 19: the public entry point.  System(STEREO) at the bench widths
+    (loop closing on; no device given) over the first SYS_FRAMES frames
+    of phase 4's shaken corridor (``frames``); the three trajectory
+    savers; the pose covariance, also in TrackIRD's world frame; the map
+    saved and read back on the card bit for bit; a fresh System with
+    ``map_file`` set starts LOST in localization mode and relocalizes a
+    re-render of frame SYS_RELOC_FRAME within 0.1 m (hamming_top2 from
+    reloc_attempt), and one more frame leaves the map as it was;
+    change_calibration to slightly other intrinsics, then SYS_CALIB_FRAMES
+    frames more; System(RGBD).track_ird over IRD_FRAMES frames of phase
+    13's depth corridor (HPose within IRD_BAR of the truth remapped as
+    System.cc:298-319); tools.replay.run_synthetic_stereo at the default
+    capacity.  The reloc_attempt call and every track_ref_kf matching
+    call are replayed with the plain version afterwards."""
+    import os
+    import tempfile
+
+    from orbslam2_tpu_torch.config import RGBD, STEREO
+    from orbslam2_tpu_torch.models import map_state as M
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.runtime import serialization, tracking
+    from orbslam2_tpu_torch.runtime.system import System
+    from orbslam2_tpu_torch.tools import replay as replay_mod
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = bench_config()
+    poses_gt = shaken_trajectory()
+    world = synthetic.make_world(np.random.default_rng(0))  # phase 4's
+    rng = np.random.default_rng(19)
+    records, restore = _record_matches("track_ref_kf")
+    ht2.reset_launch_counts()          # the System path's count
+    sys1 = System(None, None, STEREO, config=cfg)
+    if sys1.device.type != "cuda":
+        raise AssertionError(f"system: System chose {sys1.device}")
+    frame_ms = []
+    try:
+        for i, (left, right) in enumerate(frames):
+            t0 = time.perf_counter()
+            Tcw = sys1.track_stereo(left, right, 0.1 * i)
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            if Tcw is None or sys1.get_tracking_state() != tracking.OK:
+                raise AssertionError(f"system: lost at frame {i}")
+    finally:
+        restore()
+    err = ate(sys1.engine.frame_poses(), poses_gt[:len(frames)])
+    if not err < 0.15:
+        raise AssertionError(f"system: ATE {err} m (need < 0.15)")
+
+    cov = sys1.get_current_covariance()
+    cov_w = sys1.get_current_covariance_world()
+    eig = np.linalg.eigvalsh((cov + cov.T) / 2)
+    cov_ok = (cov.shape == cov_w.shape == (6, 6)
+              and np.allclose(cov, cov.T, rtol=0,
+                              atol=1e-4 * np.abs(cov).max())
+              and eig.min() >= -1e-8
+              and np.allclose(np.sort(np.linalg.eigvalsh(cov_w)),
+                              np.sort(np.linalg.eigvalsh(cov)), rtol=1e-4))
+    if not cov_ok:
+        raise AssertionError(f"system: covariance {cov}, eigenvalues {eig}")
+
+    eng1 = sys1.engine
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = {}
+        for name, save in (("TUM", sys1.save_trajectory_tum),
+                           ("KITTI", sys1.save_trajectory_kitti),
+                           ("keyframe TUM",
+                            sys1.save_keyframe_trajectory_tum)):
+            path = os.path.join(tmp, name.replace(" ", "_") + ".txt")
+            save(path)
+            with open(path) as f:
+                lines[name] = len(f.read().splitlines())
+        want = {"TUM": len(frames), "KITTI": len(frames),
+                "keyframe TUM": int(eng1.ms.kf_valid.sum())}
+        if lines != want:
+            raise AssertionError(f"system: trajectory lines {lines}, "
+                                 f"want {want}")
+
+        map_path = os.path.join(tmp, "map.npz")
+        t0 = time.perf_counter()
+        sys1.save_map(map_path)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        mb = os.path.getsize(map_path) / 1e6
+        t0 = time.perf_counter()
+        ms, db, counters = serialization.load_map(map_path)
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        same = (ms.kf_desc.is_cuda and db.bow.is_cuda
+                and all(torch.equal(getattr(ms, k), getattr(eng1.ms, k))
+                        for k in M.MapState._fields)
+                and torch.equal(db.bow, eng1.loop_closer.db.bow)
+                and torch.equal(db.valid, eng1.loop_closer.db.valid)
+                and counters == {"n_kfs": eng1.n_kfs,
+                                 "kf_ordinal": eng1.kf_ordinal,
+                                 "frame_id": eng1.frame_id})
+        if not same:
+            raise AssertionError("system: the map read back differs from "
+                                 "the one saved")
+        t0 = time.perf_counter()
+        sys2 = System(None, None, STEREO,
+                      config=cfg.replace(map_file=map_path))
+        torch.cuda.synchronize()
+        start_ms = 1e3 * (time.perf_counter() - t0)
+    eng2 = sys2.engine
+    if not (sys2.get_tracking_state() == tracking.LOST
+            and eng2.localization_only):
+        raise AssertionError("system: a System with map_file did not start "
+                             "LOST in localization mode")
+
+    lc = eng2.loop_closer
+    attempt, calls = lc.fns.reloc_attempt, []
+
+    def recorded(*args):
+        calls.append((args, args[-1].get_state()))
+        return attempt(*args)
+
+    lc.fns = lc.fns._replace(reloc_attempt=recorded)
+    T_back = poses_gt[SYS_RELOC_FRAME]
+    t0 = time.perf_counter()
+    try:
+        Tcw = sys2.track_stereo(*synthetic.render_world_stereo(
+            world, cfg.camera, T_back, rng, 1.0), 99.0)
+        torch.cuda.synchronize()
+    finally:
+        lc.fns = lc.fns._replace(reloc_attempt=attempt)
+    reloc_ms = 1e3 * (time.perf_counter() - t0)
+    reloc_launches = ht2.hamming_top2.launches_by_site.get("reloc_attempt",
+                                                           0)
+    if Tcw is None or eng2.stats["reloc"] != 1:
+        raise AssertionError("system: no relocalization on the loaded map")
+    Te = Tcw @ poses_gt[0]
+    d = float(np.linalg.norm(-Te[:3, :3].T @ Te[:3, 3]
+                             + T_back[:3, :3].T @ T_back[:3, 3]))
+    if not d < 0.1:
+        raise AssertionError(f"system: relocalized {d} m off (need < 0.1)")
+    if reloc_launches < 1:
+        raise AssertionError("system: reloc_attempt never launched "
+                             "hamming_top2")
+    kfs = (eng2.n_kfs, eng2.stats["kf_inserted"])
+    after = sys2.track_stereo(*synthetic.render_world_stereo(
+        world, cfg.camera, poses_gt[SYS_RELOC_FRAME + 1], rng, 1.0), 99.1)
+    if (eng2.n_kfs, eng2.stats["kf_inserted"]) != kfs:
+        raise AssertionError("system: the map grew in localization mode")
+
+    cam2 = dataclasses.replace(cfg.camera, fx=455.0, fy=455.0, cx=318.0,
+                               cy=242.0, bf=151.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        settings = os.path.join(tmp, "calibration.yaml")
+        _write_settings(settings, cam2)
+        n_kfs = sys1.engine.n_kfs
+        sys1.change_calibration(settings)
+    if sys1.cfg.camera.fx != cam2.fx or sys1.engine.n_kfs != n_kfs:
+        raise AssertionError("system: change_calibration lost the map or "
+                             "the new camera")
+    for i in range(len(frames), len(frames) + SYS_CALIB_FRAMES):
+        out = sys1.track_stereo(*synthetic.render_world_stereo(
+            world, cam2, poses_gt[i], rng, 1.0), 0.1 * i)
+        if out is None or sys1.get_tracking_state() != tracking.OK:
+            raise AssertionError(f"system: lost at frame {i} after "
+                                 f"change_calibration")
+
+    rcfg = rgbd_config()
+    sys3 = System(None, None, RGBD, config=rcfg)
+    ird_err = []
+    for i, (gray, depth) in enumerate(render_rgbd(
+            world, rcfg.camera, poses_gt[:IRD_FRAMES], rng)):
+        hp = sys3.track_ird(gray, depth, 0.1 * i)
+        if hp is None:
+            raise AssertionError(f"system: track_ird lost at frame {i}")
+        Tg = poses_gt[i] @ np.linalg.inv(poses_gt[0])
+        c = -Tg[:3, :3].T @ Tg[:3, 3]
+        ird_err.append(float(np.linalg.norm(
+            hp.position - np.array([c[2], -c[0], -c[1]]))))
+    if not max(ird_err) < IRD_BAR:
+        raise AssertionError(f"system: HPose {max(ird_err)} m off")
+
+    t0 = time.perf_counter()
+    rep = replay_mod.run_synthetic_stereo(n_frames=REPLAY_FRAMES)
+    replay_s = time.perf_counter() - t0
+    if rep.n_frames != REPLAY_FRAMES or rep.n_tracked != REPLAY_FRAMES:
+        raise AssertionError(f"system: replay tracked {rep.n_tracked} of "
+                             f"{rep.n_frames} frames")
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+
+    same_ref = _replay_plain(records)
+    print(f"[system] System.track_stereo over {len(frames)} shaken "
+          f"corridor frames: median {np.median(frame_ms[1:]):.1f} ms/frame "
+          f"after frame 0, KFs inserted {eng1.stats['kf_inserted']}, ATE "
+          f"{err:.4f} m; trajectory lines {lines}; covariance eigenvalues "
+          f"{eig.min():.3g}..{eig.max():.3g}, world frame equal spectrum; "
+          f"{len(records)} track_ref_kf matching calls replayed with the "
+          f"plain version: equal {same_ref} ({smi})", flush=True)
+    print(f"[system] save_map {save_ms:.1f} ms, {mb:.3f} MB; load_map "
+          f"{load_ms:.1f} ms (read back bit for bit: {same}); System with "
+          f"map_file {start_ms:.1f} ms; relocalized a re-render of frame "
+          f"{SYS_RELOC_FRAME} within {d:.4f} m in {reloc_ms:.1f} ms, the "
+          f"next frame {'tracked' if after is not None else 'lost'}, map "
+          f"unchanged ({smi})", flush=True)
+    print(f"[system] change_calibration (fx {cfg.camera.fx} → {cam2.fx}): "
+          f"KFs kept {n_kfs}, {SYS_CALIB_FRAMES} frames tracked after; "
+          f"track_ird over {IRD_FRAMES} RGB-D frames: HPose world position "
+          f"within {max(ird_err):.4f} m; replay driver "
+          f"(run_synthetic_stereo, CapacityConfig(), {REPLAY_FRAMES} "
+          f"frames): median {rep.median_ms:.1f} ms, mean {rep.mean_ms:.1f} "
+          f"ms, tracked {rep.n_tracked}/{rep.n_frames}, {replay_s:.1f} s "
+          f"with rendering; hamming_top2 launches by path {by_site} ({smi})",
+          flush=True)
+    if not same_ref:
+        raise AssertionError("system: kernel and plain differ on "
+                             "track_ref_kf's live input")
+    live_reloc_call(eng2, attempt, *calls[-1])
+    return by_site, {"ms": float(np.median(frame_ms[1:])),
+                     "save_ms": save_ms, "load_ms": load_ms, "mb": mb,
+                     "replay_median_ms": rep.median_ms,
+                     "replay_mean_ms": rep.mean_ms}
+
+
 def main():
     smi = phase_device()
     phase_build(smi)
@@ -1606,6 +1859,7 @@ def main():
     reloc_sites = phase_reloc(eng, poses_gt, scene, rng, smi)
     del eng
     windowed_sites = phase_windowed_fallback(smi, corridor)
+    sys_frames = corridor[:SYS_FRAMES]
     del corridor
     eng, frames, poses_gt, bench_sites, slam = phase_bench_slam(smi)
     loc_sites, loc = phase_bench_loc(eng, frames, poses_gt, smi)
@@ -1619,6 +1873,8 @@ def main():
     gba_times = phase_gba_solvers(smi)
     mono_sites, mono = phase_mono_slice(smi)
     bench_mono_sites, bench_mono = phase_bench_mono(smi)
+    system_sites, system = phase_system(smi, sys_frames)
+    del sys_frames
     k = phase_kernel_times(smi, main_inputs)
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
                "reloc (phase 8)": reloc_sites,
@@ -1629,7 +1885,8 @@ def main():
                "bench RGB-D (phase 14)": bench_rgbd_sites,
                "localization (phase 15)": localization_sites,
                "mono slice (phase 17)": mono_sites,
-               "bench mono (phase 18)": bench_mono_sites}
+               "bench mono (phase 18)": bench_mono_sites,
+               "System (phase 19)": system_sites}
     print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
           f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
@@ -1641,8 +1898,11 @@ def main():
           f"{mono['ms']:.1f} ms/frame, ATE {mono['ate_m']:.4f} m; mono SLAM "
           f"{bench_mono['mono_fps']:.3f} fps (passes "
           f"{[round(f, 3) for f in bench_mono['pass_fps']]}), "
-          f"{bench_mono['kf_per_frame']:.4f} KFs a frame ({smi})",
-          flush=True)
+          f"{bench_mono['kf_per_frame']:.4f} KFs a frame; System "
+          f"{system['ms']:.1f} ms/frame, save_map {system['save_ms']:.1f} "
+          f"ms / load_map {system['load_ms']:.1f} ms ({system['mb']:.3f} "
+          f"MB), replay median {system['replay_median_ms']:.1f} / mean "
+          f"{system['replay_mean_ms']:.1f} ms ({smi})", flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

@@ -1,7 +1,8 @@
 """Carry state between the JAX package and the port as numpy dicts.
 
 The SLAM system has no weights: its carried-over state is the map
-(``MapState``), the frame (``FrameData``) and the config.  These helpers
+(``MapState``), the keyframe database (``KeyFrameDB``), the frame
+(``FrameData``) and the config.  These helpers
 take and return plain ``{field: np.ndarray}`` dicts, e.g.
 ``{k: np.asarray(v) for k, v in ms._asdict().items()}`` of a JAX
 ``MapState``, so both packages can be given the same inputs.
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from orbslam2_tpu_torch.models.frame import FrameData
+from orbslam2_tpu_torch.models.keyframe_db import KeyFrameDB
 from orbslam2_tpu_torch.models.map_state import MapState
 
 DESC_FIELDS = frozenset({"desc", "kf_desc", "mp_desc", "mp_desc_ring"})
@@ -33,6 +35,12 @@ def to_tensor(a, device=None) -> torch.Tensor:
 
 def map_state_from_numpy(d: Dict[str, np.ndarray], device=None) -> MapState:
     return MapState(**{k: to_tensor(d[k], device) for k in MapState._fields})
+
+
+def keyframe_db_from_numpy(d: Dict[str, np.ndarray], device=None
+                           ) -> KeyFrameDB:
+    return KeyFrameDB(**{k: to_tensor(d[k], device)
+                         for k in KeyFrameDB._fields})
 
 
 def frame_data_from_numpy(d: Dict[str, np.ndarray], device=None

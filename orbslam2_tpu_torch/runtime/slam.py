@@ -562,6 +562,15 @@ class SlamEngine:
             self.ref_kf, False))
 
     # ------------------------------------------------------------- outputs
+    def current_pose_covariance(self) -> Optional[np.ndarray]:
+        """6×6 covariance of the last tracked pose (numpy float32), or None
+        before a frame has been tracked (JAX ``slam.py:435-442``)."""
+        if self.last_fd is None or self.last_Tcw is None:
+            return None
+        return self.fns.pose_covariance(
+            self.ms, self.last_fd, self._t(self.last_Tcw),
+            self.last_assoc).cpu().numpy()
+
     def frame_poses(self) -> List[Optional[np.ndarray]]:
         """Per-frame Tcw through the (BA-corrected) reference keyframes."""
         kf_pose = self.ms.kf_pose.cpu().numpy()

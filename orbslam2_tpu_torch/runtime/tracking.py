@@ -7,11 +7,10 @@ mono bootstrap (``mono_match``, ``mono_build``), ``track_body``
 dual path),
 ``track_ref_kf`` (the TrackReferenceKeyFrame fallback, which reaches the
 ``hamming_top2`` kernel through ``match_descriptors``),
-``insert_keyframe_body`` and ``apply_counters``.  Each step keeps the
-40-float ``Summary`` layout, so the host state machine reads one small
-tensor per call.
-
-``pose_covariance`` waits for its ROADMAP item.
+``insert_keyframe_body``, ``apply_counters`` and ``pose_covariance``
+(JAX ``tracking.py:474-486``).  Each tracking step keeps the 40-float
+``Summary`` layout, so the host state machine reads one small tensor per
+call.
 """
 
 from __future__ import annotations
@@ -120,6 +119,7 @@ class TrackingFns(NamedTuple):
     track_ref_kf: object
     insert_keyframe_body: object
     apply_counters: object
+    pose_covariance: object
 
 
 def make_tracking_fns(cfg: SlamConfig) -> TrackingFns:
@@ -480,9 +480,26 @@ def make_tracking_fns(cfg: SlamConfig) -> TrackingFns:
             mp_visible=ms.mp_visible + visible_mask.to(torch.int32),
             mp_found=ms.mp_found + found_mask.to(torch.int32))
 
+    def pose_covariance(ms: M.MapState, fd: FrameData, Tcw, assoc
+                        ) -> torch.Tensor:
+        """6×6 pose covariance, float32: the inverse Gauss-Newton Hessian
+        of the reprojection problem at ``Tcw`` (tangent [ω, υ]) with the
+        frame's associations (System::GetCurrentCovarianceMatrix,
+        System.cc:703-790: Geneva/Eckenhoff/Huang App. F).  ``inv_ex``, as
+        ``inv`` would check its result on the host."""
+        obs = _pose_obs_from_assoc(ms, fd, assoc, inv_sigma2(fd.xy.device))
+        _e, J, _is_stereo, behind = pose_opt._residuals_jac(cam, Tcw, obs)
+        w = obs.inv_sigma2 * obs.valid.to(torch.float32) \
+            * (~behind).to(torch.float32)
+        Jw = J * w[:, None, None]
+        H = torch.einsum("nij,nik->jk", Jw, J)
+        eye = torch.eye(6, dtype=H.dtype, device=H.device)
+        return torch.linalg.inv_ex(H + 1e-9 * eye)[0]
+
     return TrackingFns(init_stereo=init_stereo, mono_match=mono_match,
                        mono_build=mono_build, track=track,
                        track_body=track_body, track_loc_body=track_loc_body,
                        track_ref_kf=track_ref_kf,
                        insert_keyframe_body=insert_keyframe_body,
-                       apply_counters=apply_counters)
+                       apply_counters=apply_counters,
+                       pose_covariance=pose_covariance)

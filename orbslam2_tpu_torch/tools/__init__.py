@@ -1,0 +1,1 @@
+"""tools of the PyTorch/CUDA port (see the package docstring)."""

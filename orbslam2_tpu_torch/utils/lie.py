@@ -1,10 +1,11 @@
 """SO(3) / SE(3) / Sim(3) Lie-group operations on torch tensors.
 
-Port of ``orbslam2_tpu/utils/lie.py`` (the quaternion part waits for
-serialization).  Poses are ``[..., 4, 4]`` homogeneous matrices, twists
-``[..., 6]`` = [ω, υ], Sim3 elements ``(s, R, t)`` with x ↦ s·R·x + t and
-tangents ``[..., 7]`` = [ω, υ, σ], all with arbitrary leading batch
-dimensions.
+Port of ``orbslam2_tpu/utils/lie.py``, the quaternion part
+(``lie.py:186-249``: TUM-order (x, y, z, w) quaternions and HPose's
+Euler angles) included.  Poses are ``[..., 4, 4]`` homogeneous
+matrices, twists ``[..., 6]`` = [ω, υ], Sim3 elements ``(s, R, t)`` with
+x ↦ s·R·x + t and tangents ``[..., 7]`` = [ω, υ, σ], all with arbitrary
+leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -158,6 +159,77 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
                          f"{tuple(T.shape)}")
     R, t = mat_to_rt(T)
     return torch.sum(pts[..., None, :] * R, dim=-1) + t
+
+
+# ------------------------------------------------------------- quaternion ----
+
+def quat_from_mat(R: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] → [..., 4] quaternion (x, y, z, w), TUM trajectory order
+    (System.cc:516 writes q.x q.y q.z q.w).  All four extractions are
+    computed and one is selected as JAX does: the trace branch when the
+    trace is positive, else the one of the largest diagonal entry (the
+    near-180° rotations)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 0.5
+
+    qw0 = half_sqrt(1.0 + tr)
+    q0 = torch.stack([(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0), qw0], dim=-1)
+    qx1 = half_sqrt(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1),
+                      (m21 - m12) / (4 * qx1)], dim=-1)
+    qy2 = half_sqrt(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2),
+                      (m02 - m20) / (4 * qy2)], dim=-1)
+    qz3 = half_sqrt(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3,
+                      (m10 - m01) / (4 * qz3)], dim=-1)
+    cond_tr = (tr > 0.0)[..., None]
+    cond_x = ((m00 > m11) & (m00 > m22))[..., None]
+    cond_y = (m11 > m22)[..., None]
+    q = torch.where(cond_tr, q0,
+                    torch.where(cond_x, q1, torch.where(cond_y, q2, q3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def mat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (x, y, z, w) → [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack([
+        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+    ], dim=-2)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a·b of [..., 4] (x, y, z, w) quaternions."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ], dim=-1)
+
+
+def euler_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (x, y, z, w) → [..., 3] roll, pitch, yaw (HPose.cpp)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)
 
 
 # ----------------------------------------------------------------- Sim(3) ----

@@ -1,6 +1,6 @@
 """The port's copies of the numpy-only modules (config, BRIEF pattern,
-synthetic scenes, trajectory export and ATE) stay equal to the JAX
-package's originals."""
+synthetic scenes, trajectory export and ATE, HPose, the native runtime's
+ctypes bindings) stay equal to the JAX package's originals."""
 
 import dataclasses
 
@@ -10,10 +10,14 @@ import torch
 
 from orbslam2_tpu import config as jconfig
 from orbslam2_tpu.ops import pattern as jpattern
+from orbslam2_tpu.runtime import native as jnative
+from orbslam2_tpu.utils import hpose as jhpose
 from orbslam2_tpu.utils import synthetic as jsynthetic
 from orbslam2_tpu.utils import trajectory as jtrajectory
 from orbslam2_tpu_torch import config as tconfig
 from orbslam2_tpu_torch.ops import pattern as tpattern
+from orbslam2_tpu_torch.runtime import native as tnative
+from orbslam2_tpu_torch.utils import hpose as thpose
 from orbslam2_tpu_torch.utils import synthetic as tsynthetic
 from orbslam2_tpu_torch.utils import trajectory as ttrajectory
 
@@ -88,3 +92,42 @@ def test_trajectory_copy_identical(tmp_path):
         getattr(jtrajectory, save)(str(tmp_path / f"j.{name}"), *args)
         assert ((tmp_path / f"t.{name}").read_text()
                 == (tmp_path / f"j.{name}").read_text())
+
+
+def test_hpose_copy_identical():
+    """Same source below the copy's header; the same HPose, world-frame
+    remap and Euler angles, also at a half turn (the non-trace branch)."""
+    assert open(thpose.__file__).read().endswith(
+        open(jhpose.__file__).read())
+    rng = np.random.default_rng(6)
+    poses = [jsynthetic.look_ahead_pose(rng.normal(0, 2, 3),
+                                        yaw=rng.normal(0, 1.0),
+                                        pitch=rng.normal(0, 0.3))
+             for _ in range(6)]
+    poses.append(np.diag([-1.0, 1.0, -1.0, 1.0]))
+    for T in poses:
+        hj = jhpose.HPose.from_Tcw(T)
+        ht = thpose.HPose.from_Tcw(T)
+        for a, b in ((ht, hj), (ht.to_world_frame(), hj.to_world_frame())):
+            np.testing.assert_array_equal(a.position, b.position)
+            np.testing.assert_array_equal(a.quaternion, b.quaternion)
+            np.testing.assert_array_equal(a.euler(), b.euler())
+
+
+def test_native_copy_identical():
+    """Same source below the copy's header, and the copy binds the same
+    library (or falls back alike): its StageTimer, queue and flag work."""
+    assert open(tnative.__file__).read().endswith(
+        open(jnative.__file__).read())
+    assert tnative.have_native() == jnative.have_native()
+    timer = tnative.StageTimer()
+    for _ in range(3):
+        timer.start()
+        assert timer.stop() >= 0.0
+    mean, median, lo, hi = timer.stats()
+    assert timer.count() == 3 and 0.0 <= lo <= median <= hi
+    q = tnative.TokenQueue(2)
+    assert q.push(5) and q.pop(0) == 5
+    flag = tnative.InterruptFlag()
+    flag.set(1)
+    assert flag.consume() == 1 and flag.get() == 0

@@ -469,3 +469,74 @@ def test_mono_track_ref_kf_launches_the_kernel_and_equals_plain():
     assert torch.equal(res.assoc, res_p.assoc)
     assert torch.equal(res.Tcw, res_p.Tcw)
     assert int((res.assoc >= 0).sum()) >= 50
+
+
+def test_system_load_map_relocalizes_with_the_kernel_and_equals_plain(
+        tmp_path):
+    """A stereo System on the card (no device given) saves its map; a
+    fresh System with ``map_file`` set starts LOST in localization mode,
+    and its first frame relocalizes within 0.1 m, launching hamming_top2
+    from reloc_attempt.  That attempt, run again with the kernel and with
+    the plain version from its generator state, gives the same pose,
+    inliers and associations."""
+    from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                           OrbConfig, STEREO, SlamConfig)
+    from orbslam2_tpu_torch.runtime.system import System
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0,
+                       width=640, height=480, fps=10.0, th_depth=60.0)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=400),
+                     capacity=CapacityConfig(max_keyframes=16,
+                                             max_map_points=4096,
+                                             local_ba_keyframes=4,
+                                             local_ba_points=1024),
+                     sensor=STEREO)
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    poses = synthetic.straight_trajectory(8, step=0.3)
+    sys1 = System(None, None, STEREO, config=cfg)
+    assert sys1.device.type == "cuda"
+    for i, T in enumerate(poses):
+        sys1.track_stereo(*synthetic.render_world_stereo(world, cam, T, rng,
+                                                         1.0), 0.1 * i)
+    path = str(tmp_path / "map.npz")
+    sys1.save_map(path)
+    sys2 = System(None, None, STEREO, config=cfg.replace(map_file=path))
+    eng = sys2.engine
+    assert eng.localization_only and sys2.get_tracking_state() == 3
+    assert eng.ms.kf_desc.is_cuda and eng.loop_closer.db.bow.is_cuda
+    lc = eng.loop_closer
+    attempt, calls = lc.fns.reloc_attempt, []
+
+    def recorded(*args):
+        calls.append((args, args[-1].get_state()))
+        return attempt(*args)
+
+    lc.fns = lc.fns._replace(reloc_attempt=recorded)
+    T_back = poses[3]
+    before = tk.hamming_top2.launches_by_site.get("reloc_attempt", 0)
+    try:
+        Tcw = sys2.track_stereo(*synthetic.render_world_stereo(
+            world, cam, T_back, np.random.default_rng(7), 1.0), 50.0)
+        torch.cuda.synchronize()
+    finally:
+        lc.fns = lc.fns._replace(reloc_attempt=attempt)
+    assert Tcw is not None
+    assert np.linalg.norm(-Tcw[:3, :3].T @ Tcw[:3, 3]
+                          + T_back[:3, :3].T @ T_back[:3, 3]) < 0.1
+    assert tk.hamming_top2.launches_by_site.get("reloc_attempt", 0) > before
+    args, state = calls[-1]
+    outs = []
+    for top2 in (tk.hamming_top2, tk.hamming_top2_reference):
+        gen = torch.Generator(device="cuda")
+        gen.set_state(state)
+        matching.hamming_top2 = top2
+        try:
+            outs.append(attempt(*args[:-1], gen))
+            torch.cuda.synchronize()
+        finally:
+            matching.hamming_top2 = tk.hamming_top2
+    (T1, n1, a1), (T2, n2, a2) = outs
+    assert torch.equal(T1, T2) and int(n1) == int(n2) >= 50
+    assert torch.equal(a1, a2)

@@ -1,7 +1,7 @@
 """The port's stateful entry points run on the CUDA card by default.
 
-``SlamEngine(cfg)``, ``WindowedSlamEngine(cfg)`` (stereo, RGB-D and mono),
-``LoopCloser(cfg, voc)`` and ``streaming.make_window_tracker(cfg, window)``
+``System(None, None, sensor, config=cfg)``, ``SlamEngine(cfg)``,
+``WindowedSlamEngine(cfg)`` (stereo, RGB-D and mono), ``LoopCloser(cfg, voc)`` and ``streaming.make_window_tracker(cfg, window)``
 with no ``device`` take the card, and raise where torch has no CUDA
 device (forced here with ``monkeypatch``, so the tests mean the same on a
 host with a card); an explicit ``device="cpu"`` builds them on the CPU.
@@ -23,6 +23,7 @@ from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.runtime import streaming
 from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
 from orbslam2_tpu_torch.runtime.slam import SlamEngine
+from orbslam2_tpu_torch.runtime.system import System
 from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
 
 torch.set_num_threads(2)
@@ -53,6 +54,8 @@ def _build(entry, **kw):
         return SlamEngine(MONO_CFG, **kw)
     if entry == "WindowedSlamEngine(MONO)":
         return WindowedSlamEngine(MONO_CFG, **kw)
+    if entry == "System":
+        return System(None, None, STEREO, config=CFG, **kw)
     if entry == "make_window_tracker":
         return streaming.make_window_tracker(CFG, 2, **kw)
     voc = voc_mod.default_vocabulary(k=CFG.capacity.vocab_k,
@@ -63,7 +66,7 @@ def _build(entry, **kw):
 ENTRIES = ["SlamEngine", "LoopCloser", "WindowedSlamEngine",
            "make_window_tracker", "SlamEngine(RGBD)",
            "WindowedSlamEngine(RGBD)", "SlamEngine(MONO)",
-           "WindowedSlamEngine(MONO)"]
+           "WindowedSlamEngine(MONO)", "System"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -78,7 +81,9 @@ def test_explicit_cpu_builds(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     obj = _build(entry, device="cpu")
     assert obj.device == torch.device("cpu")
-    if "SlamEngine" in entry:
+    if entry == "System":
+        obj = obj.engine
+    if "SlamEngine" in entry or entry == "System":
         assert obj.ms.kf_valid.device.type == "cpu"
         assert obj.loop_closer.device == torch.device("cpu")
 

@@ -11,7 +11,10 @@ VO path, relocalization from LOST, windows that insert nothing), a
 GBA chunk past 256 keyframe slots (the CG solver), and mono frames of
 bench.py's mono walk through ``SlamEngine.track_monocular`` and
 ``WindowedSlamEngine.track_monocular`` (the H/F initializer, then one
-window), and check that nothing of jax or ``orbslam2_tpu`` was loaded.
+window), then a ``System`` through ``tools.replay.replay``, its map saved
+(``runtime/serialization.py``) and loaded by a second ``System``, which
+relocalizes, and check that nothing of jax or ``orbslam2_tpu`` was
+loaded.
 Also: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -139,6 +142,23 @@ assert mweng.state == 2 and len(mest) >= 4, (mweng.state, mweng.stats)
 gt = trajectory.centers_from_poses(mposes[-len(mest):])
 assert trajectory.ate_rmse(trajectory.centers_from_poses(mest), gt,
                            align=True, with_scale=True) < 0.05
+import os, tempfile
+from orbslam2_tpu_torch.runtime import serialization  # noqa: F401
+from orbslam2_tpu_torch.runtime.system import System
+from orbslam2_tpu_torch.tools import replay
+sysm = System(None, None, STEREO, config=cfg, device="cpu")
+rep = replay.replay(sysm, [(left, right, 0.1 * i)
+                           for i, (left, right) in enumerate(frames[:4])],
+                    "stereo", warmup=1)
+assert rep.n_tracked == 4 and len(rep.durations_ms) == 3, rep
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "map.npz")
+    sysm.save_map(path)
+    sys2 = System(None, None, STEREO, config=cfg.replace(map_file=path),
+                  device="cpu")
+assert sys2.engine.localization_only and sys2.get_tracking_state() == 3
+assert sys2.track_stereo(*frames[2], 5.0) is not None     # relocalized
+assert sys2.get_current_covariance().shape == (6, 6)
 bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
              or m.startswith("orbslam2_tpu.")
              or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
