@@ -115,17 +115,43 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  remapped truth); tools.replay.run_synthetic_stereo at the
                  default capacity (median and mean ms); track_ref_kf's
                  matching calls replayed with the plain version;
+ 20. async     — AsyncSlamEngine (runtime/pipeline.py: the mapping worker
+                 on its own CUDA stream, loop closing on, no device given)
+                 over phase 4's 40 jolted corridor frames: the caller's ms a
+                 frame (track_stereo to a synchronize of its own stream;
+                 median and worst beside phase 4's median), the worker's
+                 mapping-step ms, keyframes queued / mapped / dropped, jobs
+                 mapped without local BA, the deepest queue, the share of
+                 keyframe decisions that met a busy mapper; ATE < 0.15 m,
+                 never lost; hamming_top2 launched from track_ref_kf on the
+                 tracking thread; then phase 6's orbit, run on at its
+                 step for 14 frames more (86, ~1.5 turns), through a second
+                 AsyncSlamEngine: ≥ 85% tracked, ≥ 1 loop closed and its
+                 global BA merged, ATE < 0.5 m, hamming_top2 launched from
+                 match_for_sim3 on the worker thread; every matching call
+                 of both runs replayed with the plain version;
+                 StereoRectifier on a 752×480 EuRoC-like calibration:
+                 remap_pair on the card within 1e-3 of the host path, ms a
+                 pair for each path; once phase 9's timed part is done, a
+                 third AsyncSlamEngine over the corridor's first 16 frames,
+                 the last 8 under torch.profiler: kernels and device ms
+                 per CUDA stream and the device time both streams were
+                 busy at once;
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
                  line's ``ms`` and ``plain_ms``), then its device µs per
-                 launch (torch.profiler, ``device_ms``; run last so that no
-                 profiler session precedes a timed phase) against its
-                 bound.
-Phases run in the order 1-8, 10-19, 9.  Every time printed carries the
-card's name and power limit.  The line before the last is the kernels'
-JSON record (launches per path); the last line is {"ok": true,
-"device": {...}}.  Imports nothing of JAX.
+                 launch (torch.profiler, ``device_ms``) against its bound.
+                 The wrapper's host µs is also taken at the end of phase 3
+                 and after phase 20's profiled window (the kernels line's
+                 ``host_us_by_point``).
+No profiler session of phase 20 or 9 precedes a timed measurement: phases
+run in the order 1-8, 10-19, 20's corridor, orbit and rectify, 9's timed
+part, 20's profiled window, 9's device times.  (Phases 12, 16 and 18
+profile windows of their own, before phase 19.)
+Every time printed carries the card's name and power limit.  The line
+before the last is the kernels' JSON record (launches per path); the last
+line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -272,19 +298,53 @@ def phase_kernels(smi):
                                  f"|diff| {err}")
         print(f"[kernels] hamming_top2 {name}: bit-exact vs plain "
               f"(A={a.shape[0]}, B={b.shape[0]})", flush=True)
-    return max_err, cases["1024x1024"]
+    # the wrapper's costs before any engine ran or any profiler session
+    return max_err, cases["1024x1024"], _wrapper_times(cases["1024x1024"])
+
+
+def _wrapper_times(main_inputs):
+    """(wrapper host µs per call, wrapper-inclusive ms per call from CUDA
+    events) of hamming_top2 on ``main_inputs``."""
+    from orbslam2_tpu_torch.kernels.bench_hamming_top2 import host_us
+    from orbslam2_tpu_torch.ops.hamming_top2 import hamming_top2
+
+    a, av, b, bv = main_inputs
+    return (host_us(lambda: hamming_top2(a, av, b, bv)),
+            _cuda_ms(lambda: hamming_top2(a, av, b, bv)))
 
 
 def phase_kernel_times(smi, main_inputs):
-    from orbslam2_tpu_torch.kernels.bench_hamming_top2 import (device_us,
-                                                               host_us)
-    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
-                                                     hamming_top2_reference)
+    """Phase 9, its timed part: the wrapper's host µs and the
+    wrapper-inclusive and plain ms per call (CUDA events), after phases
+    4-20's timed parts and before phase 20's profiled window."""
+    from orbslam2_tpu_torch.ops.hamming_top2 import hamming_top2_reference
 
     a, av, b, bv = main_inputs
-    wrapper_host_us = host_us(lambda: hamming_top2(a, av, b, bv))
-    call_ms = _cuda_ms(lambda: hamming_top2(a, av, b, bv))
+    wrapper_host_us, call_ms = _wrapper_times(main_inputs)
     plain_ms = _cuda_ms(lambda: hamming_top2_reference(a, av, b, bv))
+    return {"ms": call_ms, "host_us": wrapper_host_us, "plain_ms": plain_ms}
+
+
+def phase_kernel_device(smi, main_inputs, k, early):
+    """Phase 9, last: the wrapper's times once more, after phase 20's
+    profiled window (beside phase 3's ``early`` and the timed part's
+    ``k``: what each span of the run did to the wrapper's host cost),
+    then the kernel's device µs per launch under torch.profiler against
+    its bound.  Returns ``k`` with the device numbers added."""
+    from orbslam2_tpu_torch.kernels.bench_hamming_top2 import device_us
+    from orbslam2_tpu_torch.ops.hamming_top2 import hamming_top2
+
+    a, av, b, bv = main_inputs
+    late = _wrapper_times(main_inputs)
+    points = {"phase 3 (no engine, no profiler yet)": early,
+              "phase 9 (after phases 4-20's timed parts)":
+                  (k["host_us"], k["ms"]),
+              "after phase 20's profiled window": late}
+    print(f"[times] hamming_top2 1024x1024 wrapper host us / "
+          f"wrapper-inclusive us per call (CUDA events): "
+          + "; ".join(f"{name} {h:.2f} / {1e3 * ms:.3f}"
+                      for name, (h, ms) in points.items())
+          + f" ({smi})", flush=True)
     dev_us, recorded = device_us(lambda: hamming_top2(a, av, b, bv), n=200)
     clock = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -295,17 +355,17 @@ def phase_kernel_times(smi, main_inputs):
     print(f"[times] hamming_top2 1024x1024: device {dev_us:.3f} us per "
           f"launch (torch.profiler, mean of {recorded} recorded of 200), "
           f"wrapper-inclusive "
-          f"{1e3 * call_ms:.3f} us per call (CUDA events), wrapper host "
-          f"{wrapper_host_us:.2f} us per call, plain {plain_ms:.4f} ms; "
+          f"{1e3 * k['ms']:.3f} us per call (CUDA events), wrapper host "
+          f"{k['host_us']:.2f} us per call, plain {k['plain_ms']:.4f} ms; "
           f"bound {1e3 * bound_ms:.3f} us by {bound_by} ({ops} __popc at "
           f"{POPC_PER_SM_CLOCK}/clock/SM, SM clock {clock:.0f} MHz; "
           f"{nbytes} bytes), {100 * share:.1f}% of the bound ({smi})",
           flush=True)
     # ms: per call, wrapper included (CUDA events), as in every earlier
     # kernels line; device_ms: the kernel's own time (torch.profiler)
-    return {"ms": call_ms, "device_ms": dev_us / 1e3,
+    return {**k, "device_ms": dev_us / 1e3,
             "device_launches_recorded": recorded,
-            "host_us": wrapper_host_us, "plain_ms": plain_ms,
+            "host_us_by_point": {n: h for n, (h, _) in points.items()},
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": share,
             "sm_clock_mhz": clock}
 
@@ -457,7 +517,7 @@ def phase_slice(smi):
     if engine_launches < 1:
         raise AssertionError("slice: the main path never launched the "
                              "hamming_top2 kernel")
-    return eng, engine_launches, by_site, frames
+    return eng, engine_launches, by_site, frames, np.median(frame_ms[1:])
 
 
 def phase_live_call(eng, engine_launches):
@@ -505,13 +565,14 @@ def orbit_scene(rng, n=1000, wall_radius=12.0, z_center=10.0):
     return scene
 
 
-def outward_orbit(n, radius=4.0, z_center=10.0, turns=1.0):
+def outward_orbit(n, radius=4.0, z_center=10.0, turns=1.0, stop=None):
     """Camera circling the centre looking outward at the wall (a copy of
-    tests/test_loop_closing.py:38-45)."""
+    tests/test_loop_closing.py:38-45): ``turns`` over ``n`` frames; with
+    ``stop``, frames 0 to ``stop`` - 1 at the same step."""
     from orbslam2_tpu_torch.utils import synthetic
 
     poses = []
-    for i in range(n):
+    for i in range(n if stop is None else stop):
         a = 2.0 * np.pi * turns * i / n
         t = np.array([radius * np.sin(a), 0.0,
                       z_center - radius * np.cos(a)])
@@ -599,7 +660,7 @@ def phase_loop(smi):
                                 for name in LOOP_LAYERS})
     lc.gba.f_chunk = lc.gba.f_chunk.__wrapped__
     lc.gba.f_merge = lc.gba.f_merge.__wrapped__
-    return eng, poses_gt, scene, rng, by_site
+    return eng, poses_gt, scene, rng, by_site, frames
 
 
 def phase_live_loop_call(eng):
@@ -776,7 +837,8 @@ def _record_matches(*sites):
 
     def recording(*args, **kwargs):
         out = match(*args, **kwargs)
-        if ht2._site.name in sites:
+        # the site is per thread, and unset on a thread that named none
+        if getattr(ht2._site, "name", None) in sites:
             records.append((args, kwargs, out))
         return out
 
@@ -1846,21 +1908,444 @@ def phase_system(smi, frames):
                      "replay_mean_ms": rep.mean_ms}
 
 
+# phase 20: the async pipeline (orbslam2_tpu_torch/runtime/pipeline.py)
+ASYNC_PROFILED = 8             # the corridor's last frames, profiled
+# phase 6's orbit run on at its step to 86 frames (~1.5 turns): the async
+# engine's keyframes are denser than the sync engine's (tracking sees a
+# queued keyframe's points only once the worker publishes it), and its
+# loop is detected later: at frames 58-71 of the 72, against the sync
+# engine's 59 (orbslam2_tpu_torch/tools/async_orbit_spread.py; PERF.md §6,
+# ROADMAP Queue 3)
+ASYNC_ORBIT_EXTRA = 14
+RECTIFY_W, RECTIFY_H, RECTIFY_TOL = 752, 480, 1e-3
+
+
+def _spy_async(eng):
+    """Wrap the async engine's hooks: keyframe decisions and whether they
+    met a busy mapper, jobs queued and the queue's depth after each push,
+    jobs mapped and their ba_ok, mapping-step ms (the worker's stream
+    synchronized), and the thread each tracking / loop-matching call ran
+    on."""
+    import threading
+
+    log = {"idle": [], "depth": [], "ba_ok": [], "map_ms": [],
+           "threads": {}}
+    idle, create, run = (eng._mapper_idle, eng._create_keyframe,
+                         eng._run_mapping_step)
+    step = eng.f_mapping_step
+
+    def mapper_idle():
+        out = idle()
+        log["idle"].append(out)
+        return out
+
+    def create_keyframe(*args):
+        create(*args)
+        log["depth"].append(eng.kf_queue.size())
+
+    def run_mapping_step(*args, **kwargs):
+        log["ba_ok"].append(kwargs["ba_ok"])
+        return run(*args, **kwargs)
+
+    def mapping_step(*args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.current_stream().synchronize()     # the worker's stream
+        log["map_ms"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def on_thread(name, fn):
+        def call(*args, **kwargs):
+            log["threads"].setdefault(name, set()).add(
+                threading.current_thread().name)
+            return fn(*args, **kwargs)
+        return call
+
+    eng._mapper_idle = mapper_idle
+    eng._create_keyframe = create_keyframe
+    eng._run_mapping_step = run_mapping_step
+    eng.f_mapping_step = mapping_step
+    eng.fns = eng.fns._replace(track_ref_kf=on_thread(
+        "track_ref_kf", eng.fns.track_ref_kf))
+    lc = eng.loop_closer
+    lc.fns = lc.fns._replace(match_for_sim3=on_thread(
+        "match_for_sim3", lc.fns.match_for_sim3))
+    return log
+
+
+def _stop_worker(eng):
+    """After a failure before ``shutdown``: end the mapping worker, so that
+    the script exits with its error and no thread left running."""
+    if eng._worker is not None and eng._worker.is_alive():
+        eng._running = False
+        eng.kf_queue.close()
+        eng._worker.join(timeout=120)
+
+
+def _union(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(u, v):
+    """Length of the intersection of two sorted disjoint interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(u) and j < len(v):
+        total += max(0.0, min(u[i][1], v[j][1]) - max(u[i][0], v[j][0]))
+        if u[i][1] < v[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _profile_streams(eng, fn):
+    """One call of ``fn`` under torch.profiler: kernels and device ms per
+    CUDA stream, and the device ms during which the tracking stream and
+    the worker's stream both had work in flight.  Spin kernels launched
+    on the worker's stream before and after ``fn`` mark that stream in
+    the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def marker():
+        with torch.cuda.stream(eng._stream):
+            torch.cuda._sleep(1000)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        marker()
+        t0 = time.perf_counter()
+        fn()
+        marker()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per = {}
+    worker = None
+    # the raw device events: prof.events() builds a tree over the window's
+    # ~500k events first, which takes longer than the window itself
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        sid = e.device_resource_id()
+        if "spin_kernel" in e.name():
+            worker = sid
+            continue
+        t_us = e.start_ns() / 1e3
+        per.setdefault(sid, []).append((t_us, t_us + e.duration_ns() / 1e3))
+    if worker is None:
+        raise AssertionError(f"async: the marker kernel on the worker's "
+                             f"stream is not in the trace (device events "
+                             f"on streams {sorted(per)})")
+    ranked = sorted(per, key=lambda k: -sum(b - a for a, b in per[k]))
+    tracking = next(k for k in ranked if k != worker)
+    # 0 when the worker mapped nothing in the window
+    both_ms = _overlap(_union(per[tracking]),
+                       _union(per.get(worker, []))) / 1e3
+    streams = {("worker" if k == worker else "tracking" if k == tracking
+                else f"stream {k}"): (len(per[k]),
+                                      sum(b - a for a, b in per[k]) / 1e3)
+               for k in ranked}
+    return streams, both_ms, wall_ms
+
+
+def _new_async_engine():
+    from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
+
+    eng = AsyncSlamEngine(bench_config())     # loop closing on, the card
+    if eng.device.type != "cuda" or eng._stream is None:
+        raise AssertionError(f"async: the engine chose {eng.device}, "
+                             f"worker stream {eng._stream}")
+    return eng
+
+
+def phase_async(smi, frames, slice_ms):
+    """Phase 20 (a): AsyncSlamEngine over phase 4's jolted corridor
+    (``frames``), every frame timed, no profiler."""
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.runtime import native, tracking
+
+    eng = _new_async_engine()
+    log = _spy_async(eng)
+    records, restore = _record_matches("track_ref_kf")
+    frame_ms = []
+    ht2.reset_launch_counts()          # the async corridor's count
+    t_start = time.perf_counter()
+    eng.start()
+    try:
+        for i, (left, right) in enumerate(frames):
+            t0 = time.perf_counter()
+            Tcw = eng.track_stereo(left, right, 0.1 * i)
+            torch.cuda.current_stream().synchronize()   # the tracking stream
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            if Tcw is None or eng.state != tracking.OK:
+                raise AssertionError(f"async: lost at frame {i}")
+        t_shut = time.perf_counter()
+        eng.shutdown()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        _stop_worker(eng)
+    t_end = time.perf_counter()
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+    err = ate(eng.frame_poses(), shaken_trajectory())
+    same = _replay_plain(records)
+    idle = log["idle"]
+    busy_share = idle.count(False) / max(len(idle), 1)
+    queued, mapped = len(log["depth"]), len(log["ba_ok"])
+    n_kf = eng.stats["kf_inserted"]
+    timed = frame_ms[1:]
+    print(f"[async] native queue {native.have_native()}; {len(frames)} "
+          f"jolted corridor frames, the caller's ms a frame (track_stereo "
+          f"to its stream's synchronize, frames 1-{len(frames) - 1}): "
+          f"median {np.median(timed):.1f}, worst {np.max(timed):.1f} "
+          f"(phase 4's median {slice_ms:.1f}); KFs inserted {n_kf} "
+          f"({n_kf / len(frames):.4f} a frame), queued {queued}, mapped "
+          f"{mapped}, dropped {queued - mapped}, mapped without local BA "
+          f"{log['ba_ok'].count(False)}, deepest queue "
+          f"{max(log['depth'], default=0)}; keyframe decisions "
+          f"{len(idle)}, busy mapper {100 * busy_share:.1f}%; mapping "
+          f"step median {np.median(log['map_ms']):.1f} ms over "
+          f"{len(log['map_ms'])}; ATE {err:.4f} m; hamming_top2 launches "
+          f"by path {by_site}, called from threads "
+          f"{ {k: sorted(v) for k, v in log['threads'].items()} }; "
+          f"{len(records)} track_ref_kf matching calls replayed with the "
+          f"plain version: equal {same}; wall s: frames "
+          f"{t_shut - t_start:.1f}, shutdown {t_end - t_shut:.1f}, replay "
+          f"{time.perf_counter() - t_end:.1f} ({smi})", flush=True)
+    if not err < 0.15:
+        raise AssertionError(f"async: ATE {err} m (need < 0.15)")
+    if by_site.get("track_ref_kf", 0) < 1 or not records:
+        raise AssertionError("async: track_ref_kf never launched "
+                             "hamming_top2")
+    if log["threads"].get("track_ref_kf") != {"MainThread"}:
+        raise AssertionError(f"async: track_ref_kf ran on "
+                             f"{log['threads'].get('track_ref_kf')}")
+    if not same:
+        raise AssertionError("async: kernel and plain differ on "
+                             "track_ref_kf's live input")
+    return by_site, {"ms": float(np.median(timed)),
+                     "worst_ms": float(np.max(timed)),
+                     "kf_per_frame": n_kf / len(frames),
+                     "busy_share": busy_share}
+
+
+def phase_async_profiled(smi, frames):
+    """Phase 20 (c), after every timed measurement of the script: a fresh
+    AsyncSlamEngine over the corridor's first 2 × ASYNC_PROFILED frames,
+    the last ASYNC_PROFILED of them under torch.profiler (kernels and
+    device ms per stream, the device time both streams were busy at
+    once).  Its launches are not counted: (a) drives the path."""
+    eng = _new_async_engine()
+    n = 2 * ASYNC_PROFILED
+
+    def track(i):
+        eng.track_stereo(*frames[i], 0.1 * i)
+        torch.cuda.current_stream().synchronize()
+
+    eng.start()
+    try:
+        for i in range(n - ASYNC_PROFILED):
+            track(i)
+        t0 = time.perf_counter()
+        streams, both_ms, prof_ms = _profile_streams(
+            eng, lambda: [track(i) for i in range(n - ASYNC_PROFILED, n)])
+        t_trace = time.perf_counter() - t0
+        eng.shutdown()
+    finally:
+        _stop_worker(eng)
+    worker_ms = streams.get("worker", (0, 0.0))[1]
+    print(f"[async] profiled corridor frames {n - ASYNC_PROFILED}-{n - 1} "
+          f"of a fresh engine, after every timed phase "
+          f"({eng.stats['kf_inserted']} KFs inserted over frames 0-{n - 1}):"
+          f" {prof_ms:.1f} ms wall; kernels and device ms per stream "
+          f"{ {k: (c, round(ms, 3)) for k, (c, ms) in streams.items()} }; "
+          f"both streams busy {both_ms:.3f} ms "
+          f"({100 * both_ms / max(worker_ms, 1e-9):.1f}% of the worker's "
+          f"device time, {100 * both_ms / prof_ms:.2f}% of the wall); the "
+          f"window with its trace {t_trace:.1f} s ({smi})", flush=True)
+    if worker_ms <= 0:
+        raise AssertionError("async: the worker's stream ran nothing in "
+                             "the profiled window")
+    return both_ms
+
+
+def phase_async_orbit(smi, frames, poses_gt, scene):
+    """Phase 20 (b): phase 6's orbit (``frames`` of ``scene``), continued
+    for ASYNC_ORBIT_EXTRA frames at the same step, through AsyncSlamEngine
+    with loop closing on: the loop is detected and corrected on the
+    worker, whose match_for_sim3 launches hamming_top2 on its stream, and
+    its global BA is merged there or at shutdown."""
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = bench_config()
+    more = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS,
+                         stop=ORBIT_FRAMES + ASYNC_ORBIT_EXTRA)[len(frames):]
+    rng = np.random.default_rng(20)
+    frames = frames + [synthetic.render_stereo(scene, cfg.camera, T, rng, 1.0)
+                       for T in more]
+    poses_gt = poses_gt + more
+    eng = AsyncSlamEngine(cfg)
+    log = _spy_async(eng)
+    records, restore = _record_matches("match_for_sim3")
+    ht2.reset_launch_counts()          # the async orbit's count
+    frame_ms, tracked, lost = [], 0, []
+    t_start = time.perf_counter()
+    eng.start()
+    try:
+        for i, (left, right) in enumerate(frames):
+            t0 = time.perf_counter()
+            Tcw = eng.track_stereo(left, right, 0.1 * i)
+            torch.cuda.current_stream().synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            tracked += Tcw is not None
+            if Tcw is None:
+                lost.append(i)
+        t_shut = time.perf_counter()
+        eng.shutdown()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        _stop_worker(eng)
+    t_end = time.perf_counter()
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+    errs = []
+    for Te, Tg in zip(eng.frame_poses(), poses_gt):
+        if Te is not None:
+            Te = Te @ poses_gt[0]    # the engine's world is the first camera
+            errs.append(np.sum((-Te[:3, :3].T @ Te[:3, 3]
+                                + Tg[:3, :3].T @ Tg[:3, 3]) ** 2))
+    err = float(np.sqrt(np.mean(errs)))
+    gst = eng.loop_closer.gba.stats
+    same = _replay_plain(records)
+    idle = log["idle"]
+    loop = eng.loop_closer.last_loop
+    loop_frame = (None if loop is None
+                  else int(eng.ms.kf_frame_id[loop[0]]))
+    print(f"[async-orbit] {len(frames)} orbit frames ({ORBIT_FRAMES} of "
+          f"phase 6 and {len(more)} more): tracked {tracked}, lost "
+          f"{lost}, KFs inserted {eng.stats['kf_inserted']}, loops closed "
+          f"{eng.stats['loops_closed']} (the pair {loop}, its newer "
+          f"keyframe from frame {loop_frame}), relocalized "
+          f"{eng.stats['reloc']}, GBA {gst}, ATE {err:.4f} m; the "
+          f"caller's median {np.median(frame_ms):.1f} ms a frame (worst "
+          f"{np.max(frame_ms):.0f}); busy mapper "
+          f"{100 * idle.count(False) / max(len(idle), 1):.1f}% of "
+          f"{len(idle)} decisions, mapped without local BA "
+          f"{log['ba_ok'].count(False)} of {len(log['ba_ok'])}; "
+          f"hamming_top2 launches by path {by_site}, called from threads "
+          f"{ {k: sorted(v) for k, v in log['threads'].items()} }; "
+          f"{len(records)} match_for_sim3 matching calls replayed with "
+          f"the plain version: equal {same}; wall s: frames "
+          f"{t_shut - t_start:.1f}, shutdown {t_end - t_shut:.1f}, replay "
+          f"{time.perf_counter() - t_end:.1f} ({smi})", flush=True)
+    if tracked < 0.85 * len(frames):
+        raise AssertionError(f"async-orbit: tracked only {tracked}")
+    if eng.stats["loops_closed"] < 1 or gst["merged"] < 1:
+        raise AssertionError(f"async-orbit: loops {eng.stats}, GBA {gst}")
+    if not err < 0.5:
+        raise AssertionError(f"async-orbit: ATE {err} m (need < 0.5)")
+    if by_site.get("match_for_sim3", 0) < 1 or not records:
+        raise AssertionError("async-orbit: match_for_sim3 never launched "
+                             "hamming_top2")
+    if log["threads"].get("match_for_sim3") != {"local-mapping"}:
+        raise AssertionError(f"async-orbit: match_for_sim3 ran on "
+                             f"{log['threads'].get('match_for_sim3')}")
+    if not same:
+        raise AssertionError("async-orbit: kernel and plain differ on "
+                             "match_for_sim3's live input")
+    return by_site
+
+
+def euroc_like_rectification():
+    """A 752×480 stereo calibration shaped like EuRoC's Stereo-EuRoC.yaml
+    (its cameras' intrinsics and rad-tan distortion, small rectifying
+    rotations, rectified projections 0.11 m apart), as the flat dict
+    ``config._parse_opencv_yaml`` gives."""
+    def rot(rx, ry, rz):
+        cx, sx, cy, sy, cz, sz = (np.cos(rx), np.sin(rx), np.cos(ry),
+                                  np.sin(ry), np.cos(rz), np.sin(rz))
+        return (np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+                @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+                @ np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]]))
+
+    P = np.array([[380.0, 0.0, 367.45, 0.0], [0.0, 380.0, 252.2, 0.0],
+                  [0.0, 0.0, 1.0, 0.0]])
+    Pr = P.copy()
+    Pr[0, 3] = -0.11 * 380.0
+    return {
+        "LEFT.width": RECTIFY_W, "LEFT.height": RECTIFY_H,
+        "LEFT.K": np.array([[458.654, 0.0, 367.215],
+                            [0.0, 457.296, 248.375], [0.0, 0.0, 1.0]]),
+        "LEFT.D": np.array([[-0.2834, 0.0740, 1.94e-4, 1.76e-5, 0.0]]),
+        "LEFT.R": rot(0.0035, -0.0040, 0.0015), "LEFT.P": P,
+        "RIGHT.width": RECTIFY_W, "RIGHT.height": RECTIFY_H,
+        "RIGHT.K": np.array([[457.587, 0.0, 379.999],
+                             [0.0, 456.134, 255.238], [0.0, 0.0, 1.0]]),
+        "RIGHT.D": np.array([[-0.2837, 0.0746, -1.04e-4, -3.56e-5, 0.0]]),
+        "RIGHT.R": rot(0.0030, 0.0021, -0.0012), "RIGHT.P": Pr}
+
+
+def phase_rectify(smi, reps=50):
+    """Phase 20 (d): StereoRectifier on the card (no device given): the
+    device path against the host path, and ms a pair for each (CUDA
+    events for the device path, images already on the card; the host
+    clock for numpy)."""
+    from orbslam2_tpu_torch.ops import rectify
+
+    rect = rectify.load_rectification(euroc_like_rectification())
+    if rect.device.type != "cuda":
+        raise AssertionError(f"rectify: the rectifier chose {rect.device}")
+    rng = np.random.default_rng(20)
+    left, right = (rng.integers(0, 256, (RECTIFY_H, RECTIFY_W),
+                                dtype=np.uint8) for _ in range(2))
+    dl, dr = rect.remap_pair(left, right)
+    hl, hr = rect(left, right)
+    err = max(float(np.abs(dl.cpu().numpy() - hl).max()),
+              float(np.abs(dr.cpu().numpy() - hr).max()))
+    lt, rt = (torch.from_numpy(x).cuda() for x in (left, right))
+    dev_ms = _cuda_ms(lambda: rect.remap_pair(lt, rt), reps=reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rect(left, right)
+    host_ms = 1e3 * (time.perf_counter() - t0) / reps
+    oob = float(np.mean((rect.maps.lx < 0) | (rect.maps.lx > RECTIFY_W - 1)
+                        | (rect.maps.ly < 0)
+                        | (rect.maps.ly > RECTIFY_H - 1)))
+    print(f"[rectify] {RECTIFY_W}x{RECTIFY_H} EuRoC-like pair ("
+          f"{100 * oob:.1f}% of the left map outside the source): "
+          f"remap_pair on the card {dev_ms:.4f} ms a pair (CUDA events), "
+          f"host path {host_ms:.3f} ms a pair; max |card − host| {err:.2e} "
+          f"(tolerance {RECTIFY_TOL}) ({smi})", flush=True)
+    if not err <= RECTIFY_TOL:
+        raise AssertionError(f"rectify: card and host differ by {err}")
+    return {"device_ms": dev_ms, "host_ms": host_ms, "max_err": err}
+
+
 def main():
     smi = phase_device()
     phase_build(smi)
-    max_err, main_inputs = phase_kernels(smi)
-    eng, engine_launches, slice_sites, corridor = phase_slice(smi)
+    max_err, main_inputs, early_times = phase_kernels(smi)
+    (eng, engine_launches, slice_sites, corridor,
+     slice_ms) = phase_slice(smi)
     phase_live_call(eng, engine_launches)
     del eng
-    eng, poses_gt, scene, rng, loop_sites = phase_loop(smi)
+    eng, poses_gt, scene, rng, loop_sites, orbit = phase_loop(smi)
+    orbit_gt, orbit_world = poses_gt, scene
     res = phase_live_loop_call(eng)
     phase_warm_loop_layers(eng, res, smi)
     reloc_sites = phase_reloc(eng, poses_gt, scene, rng, smi)
     del eng
     windowed_sites = phase_windowed_fallback(smi, corridor)
-    sys_frames = corridor[:SYS_FRAMES]
-    del corridor
     eng, frames, poses_gt, bench_sites, slam = phase_bench_slam(smi)
     loc_sites, loc = phase_bench_loc(eng, frames, poses_gt, smi)
     del eng, frames
@@ -1873,9 +2358,19 @@ def main():
     gba_times = phase_gba_solvers(smi)
     mono_sites, mono = phase_mono_slice(smi)
     bench_mono_sites, bench_mono = phase_bench_mono(smi)
-    system_sites, system = phase_system(smi, sys_frames)
-    del sys_frames
+    system_sites, system = phase_system(smi, corridor[:SYS_FRAMES])
+    # every timed measurement before the profiled windows of phases 20
+    # and 9
+    async_sites, asyn = phase_async(smi, corridor, slice_ms)
+    for site, n in phase_async_orbit(smi, orbit, orbit_gt,
+                                     orbit_world).items():
+        async_sites[site] = async_sites.get(site, 0) + n
+    del orbit, orbit_world
+    rect = phase_rectify(smi)
     k = phase_kernel_times(smi, main_inputs)
+    asyn["both_ms"] = phase_async_profiled(smi, corridor)
+    del corridor
+    k = phase_kernel_device(smi, main_inputs, k, early_times)
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
                "reloc (phase 8)": reloc_sites,
                "windowed (phase 10)": windowed_sites,
@@ -1886,7 +2381,8 @@ def main():
                "localization (phase 15)": localization_sites,
                "mono slice (phase 17)": mono_sites,
                "bench mono (phase 18)": bench_mono_sites,
-               "System (phase 19)": system_sites}
+               "System (phase 19)": system_sites,
+               "async (phase 20)": async_sites}
     print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
           f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
@@ -1902,7 +2398,12 @@ def main():
           f"{system['ms']:.1f} ms/frame, save_map {system['save_ms']:.1f} "
           f"ms / load_map {system['load_ms']:.1f} ms ({system['mb']:.3f} "
           f"MB), replay median {system['replay_median_ms']:.1f} / mean "
-          f"{system['replay_mean_ms']:.1f} ms ({smi})", flush=True)
+          f"{system['replay_mean_ms']:.1f} ms; async {asyn['ms']:.1f} "
+          f"ms/frame (worst {asyn['worst_ms']:.1f}), "
+          f"{asyn['kf_per_frame']:.4f} KFs a frame, busy mapper "
+          f"{100 * asyn['busy_share']:.1f}%, both streams busy "
+          f"{asyn['both_ms']:.3f} ms; remap_pair {rect['device_ms']:.4f} "
+          f"ms / host {rect['host_ms']:.3f} ms ({smi})", flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

@@ -12,7 +12,9 @@ splits that count by the caller that named itself with
 :func:`launch_site` (the paths that reach the kernel: tracking's
 TrackReferenceKeyFrame, loop closing's Sim3 matching, relocalization;
 the windowed engine's in-window fallback counts as
-``window/track_ref_kf``).
+``window/track_ref_kf``).  Both counters are updated under one lock:
+the async engine launches from its tracking thread and from its mapping
+worker.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from orbslam2_tpu_torch.ops import hamming
 MAX_DIST = hamming.MAX_DIST
 
 _site = threading.local()
+_count_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -147,16 +150,18 @@ def hamming_top2(a_desc: torch.Tensor, a_valid: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"hamming_top2 kernel launch failed: CUDA error "
                            f"{err}")
-    hamming_top2.launches += 1
     site = getattr(_site, "name", None) or "other"
-    by_site = hamming_top2.launches_by_site
-    by_site[site] = by_site.get(site, 0) + 1
+    with _count_lock:
+        hamming_top2.launches += 1
+        by_site = hamming_top2.launches_by_site
+        by_site[site] = by_site.get(site, 0) + 1
     return out.unbind(0)
 
 
 def reset_launch_counts() -> None:
-    hamming_top2.launches = 0
-    hamming_top2.launches_by_site.clear()
+    with _count_lock:
+        hamming_top2.launches = 0
+        hamming_top2.launches_by_site.clear()
 
 
 hamming_top2.launches = 0

@@ -15,9 +15,15 @@ identity take their optimized poses, keyframes born during the GBA are
 rebased through their spanning-tree parents over PROPAGATE_DEPTH steps,
 points take their optimized position or follow their reference keyframe.
 
-The thread issues its work on the default CUDA stream, where it
-serialises with tracking.  The mesh path of the JAX version is not
-ported.
+The thread issues its work on the default CUDA stream.  Its map crosses
+streams explicitly (``device.handoff``), since the caller may issue on
+another one (the async engine's mapping worker has its own): ``launch``
+records an event on the caller's current stream, which the thread's
+stream waits on before it reads the snapshot; the thread records one
+after its solve, which the caller's stream waits on in
+``poll_and_merge`` before the merge.  With the caller on the default
+stream too, both waits are no-ops.  The mesh path of the JAX version is
+not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from orbslam2_tpu_torch.config import SlamConfig
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.ops import bundle
+from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.utils import camera as cam_mod
 from orbslam2_tpu_torch.utils import lie
 
@@ -139,7 +146,8 @@ class GbaManager:
         self.f_chunk, self.f_merge = make_gba_fns(cfg)
         self._thread: Optional[threading.Thread] = None
         self._abort = threading.Event()
-        self._result: Optional[GbaResult] = None
+        # a finished solve and the event its stream recorded after it
+        self._result: Optional[Tuple[GbaResult, object]] = None
         self._error: Optional[Exception] = None
         self._lock = threading.Lock()
         self.stats = {"launched": 0, "aborted": 0, "finished": 0,
@@ -157,8 +165,10 @@ class GbaManager:
         with self._lock:
             self._result = None
         self.stats["launched"] += 1
+        ready = device_mod.mark(ms.kf_pose.device)
         self._thread = threading.Thread(
-            target=self._run, args=(ms,), name="global-ba", daemon=True)
+            target=self._run, args=(ms, ready), name="global-ba",
+            daemon=True)
         self._thread.start()
 
     def abort(self) -> None:
@@ -183,10 +193,12 @@ class GbaManager:
         current map.  Call from the map owner only."""
         self._raise_pending()
         with self._lock:
-            res = self._result
+            out = self._result
             self._result = None
-        if res is None:
+        if out is None:
             return ms, False
+        res, done = out
+        device_mod.handoff(res, done)
         self.stats["merged"] += 1
         return self.f_merge(ms, res), True
 
@@ -207,8 +219,9 @@ class GbaManager:
             ms, obs_w = self.f_chunk(ms, obs_w, use_huber=(chunk == 0))
         return ms
 
-    def _run(self, snap: M.MapState) -> None:
+    def _run(self, snap: M.MapState, ready) -> None:
         try:
+            device_mod.handoff(snap, ready)
             ms = self._solve_chunks(snap)
             if ms is None or self._abort.is_set():
                 return
@@ -217,11 +230,12 @@ class GbaManager:
                 snap_kf_valid=snap.kf_valid, old_poses=snap.kf_pose,
                 new_poses=ms.kf_pose, snap_mp_first=snap.mp_first_kf,
                 snap_mp_valid=snap.mp_valid, new_points=ms.mp_pos)
+            done = device_mod.mark(snap.kf_pose.device)
         except Exception as e:   # the thread's boundary: handed to the
             # map owner, which re-raises it at its next call
             with self._lock:
                 self._error = e
             return
         with self._lock:
-            self._result = res
+            self._result = (res, done)
         self.stats["finished"] += 1

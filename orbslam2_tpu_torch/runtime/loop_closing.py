@@ -504,14 +504,16 @@ class LoopCloser:
         return ms, False
 
     # ---------------------------------------------------- relocalization --
-    def relocalize(self, ms: M.MapState, fd
+    def relocalize(self, ms: M.MapState, fd,
+                   db: Optional[db_mod.KeyFrameDB] = None
                    ) -> Tuple[Optional[np.ndarray], Optional[torch.Tensor]]:
-        """Tracking::Relocalization: BoW query of the DB → per-candidate
-        EPnP RANSAC + pose optimization; success at ≥ 50 inliers.
-        Returns (Tcw, assoc) or (None, None)."""
+        """Tracking::Relocalization: BoW query of the DB (``db``, by default
+        the loop closer's own) → per-candidate EPnP RANSAC + pose
+        optimization; success at ≥ 50 inliers.  Returns (Tcw, assoc) or
+        (None, None)."""
         f = self.fns
         vec = f.frame_bow_vector(fd.desc, fd.valid)
-        cands, _ = f.detect(ms, self.db, -1, vec, 0.0)
+        cands, _ = f.detect(ms, self.db if db is None else db, -1, vec, 0.0)
         for c in cands.tolist():
             if c < 0:
                 continue

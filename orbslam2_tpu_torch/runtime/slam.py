@@ -24,6 +24,7 @@ attempt on every VO-mode frame.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import warnings
 from typing import List, Optional
 
@@ -91,6 +92,7 @@ class SlamEngine:
         self._capacity_warned = False
         self._zeros_p = torch.zeros(cfg.capacity.max_map_points,
                                     dtype=torch.int32, device=self.device)
+        self._traj_lock = threading.Lock()
         self._culled_remap = {}       # victim slot → (parent slot, Tcp)
         self._mono_ref = None         # (FrameData, frame id, timestamp)
         self._mono_gen = torch.Generator(device=self.device)
@@ -159,8 +161,9 @@ class SlamEngine:
 
         t = self.cfg.tracking
         Tcw_pred = self._t(self._predict_pose())
-        ms = self.ms
-        ref_at_track = self.ref_kf
+        # one (map, reference keyframe) pair for the whole frame: the async
+        # engine's worker publishes both while tracking runs
+        ms, ref_at_track = self._map_and_ref()
         fd = self.frontend(*pair)
         if (self.localization_only and self.cfg.sensor != MONOCULAR
                 and self.last_fd is not None):
@@ -173,7 +176,6 @@ class SlamEngine:
                                           timestamp)
         res = self.fns.track_body(ms, fd, Tcw_pred, self.last_assoc,
                                   self.last_inlier, ref_at_track, widen=True)
-        ms2 = self.fns.apply_counters(ms, res.visible_mask, res.found_mask)
         sm = tracking.Summary.of(res)
         if sm.n_inliers_map < t.local_map_tracking_threshold:
             # motion model failed → TrackReferenceKeyFrame, then re-run the
@@ -187,9 +189,7 @@ class SlamEngine:
                 sm2 = tracking.Summary.of(res2)
                 if sm2.n_inliers_map > sm.n_inliers_map:
                     res, sm = res2, sm2
-                    ms2 = self.fns.apply_counters(ms, res.visible_mask,
-                                                  res.found_mask)
-        self.ms = ms2
+        self._absorb_track(ms, res)
         if sm.n_inliers_map < t.local_map_tracking_threshold:
             return self._lost(timestamp)
         self._tracked(sm, res)
@@ -232,7 +232,7 @@ class SlamEngine:
         sm = tracking.Summary.of(res)
         vo_mode = sm.n_real_mm < 10
         if vo_mode and self.loop_closer is not None:
-            Tcw, assoc = self.loop_closer.relocalize(self.ms, fd)
+            Tcw, assoc = self._relocalize(fd)
             if Tcw is not None:
                 self.stats["reloc"] += 1
                 self._relocalized(Tcw, assoc, fd, timestamp)
@@ -241,8 +241,7 @@ class SlamEngine:
         if not (sm.n_inliers_map >= t.local_map_tracking_threshold
                 or (vo_mode and sm.n_inliers_mm > 20)):
             return self._lost(timestamp)
-        self.ms = self.fns.apply_counters(ms, res.visible_mask,
-                                          res.found_mask)
+        self._absorb_track(ms, res)
         self._tracked(sm, res)
         return self._record_tracked(sm, fd, ref_at_track, timestamp)
 
@@ -315,6 +314,23 @@ class SlamEngine:
         self._record_traj(timestamp, self.last_Tcw)
         self._mono_ref = None
         return True
+
+    def _map_and_ref(self):
+        """The map and the reference keyframe a frame tracks against."""
+        return self.ms, self.ref_kf
+
+    def _absorb_track(self, ms, res) -> None:
+        """Fold a tracked frame's visible/found counters into the map ``ms``
+        it tracked against and adopt the result (JAX ``slam.py:470-479``).
+        The async engine overrides this to accumulate them for its worker
+        instead: there tracking never writes the map."""
+        self.ms = self.fns.apply_counters(ms, res.visible_mask,
+                                          res.found_mask)
+
+    def _relocalize(self, fd):
+        """Relocalization of frame ``fd`` against the map and the keyframe
+        DB: (Tcw, assoc) or (None, None)."""
+        return self.loop_closer.relocalize(self.ms, fd)
 
     def _predict_pose(self) -> np.ndarray:
         if self.velocity is not None:
@@ -401,14 +417,15 @@ class SlamEngine:
 
     def _append_traj(self, e: TrajectoryEntry) -> None:
         """Append, rebasing through culled reference keyframes first."""
-        seen = set()
-        while not e.lost and e.ref_kf in self._culled_remap \
-                and e.ref_kf not in seen:
-            seen.add(e.ref_kf)
-            p, Tcp = self._culled_remap[e.ref_kf]
-            e.Tcr = e.Tcr @ Tcp
-            e.ref_kf = p
-        self.trajectory.append(e)
+        with self._traj_lock:
+            seen = set()
+            while not e.lost and e.ref_kf in self._culled_remap \
+                    and e.ref_kf not in seen:
+                seen.add(e.ref_kf)
+                p, Tcp = self._culled_remap[e.ref_kf]
+                e.Tcr = e.Tcr @ Tcp
+                e.ref_kf = p
+            self.trajectory.append(e)
 
     def _counter_args(self):
         """(visible, found) int32 [P] accumulators folded at insertion.
@@ -417,12 +434,18 @@ class SlamEngine:
         return self._zeros_p, self._zeros_p
 
     def _run_mapping_step(self, ms, fd, Tcw, assoc, kf_slot: int,
-                          parent: int, frame_id: int, timestamp: float):
-        vis, found = self._counter_args()
+                          parent: int, frame_id: int, timestamp: float,
+                          ba_ok: bool, counters=None):
+        """The fused keyframe insertion; local BA only when ``ba_ok`` (the
+        async worker clears it while keyframes wait, mbAbortBA) and from
+        the third keyframe on.  ``counters``: (visible, found) sums handed
+        over with the job, else ``_counter_args()``."""
+        vis, found = counters if counters is not None \
+            else self._counter_args()
         ms, stats_dev = self.f_mapping_step(
             ms, fd, Tcw, assoc, kf_slot, self.kf_ordinal, parent, frame_id,
-            timestamp, self.kf_ordinal >= 3, self.kf_ordinal >= 5, vis,
-            found)
+            timestamp, ba_ok and self.kf_ordinal >= 3, self.kf_ordinal >= 5,
+            vis, found)
         stats = stats_dev.cpu().numpy()
         self.kf_ordinal += 1
         self.n_kfs += 1
@@ -455,12 +478,13 @@ class SlamEngine:
             p = max(p, 0)
             remap[v] = (p, (pose[v] @ np.linalg.inv(pose[p])).astype(
                 np.float32))
-        self._culled_remap.update(remap)
-        for e in self.trajectory:
-            if not e.lost and e.ref_kf in remap:
-                p, Tcp = remap[e.ref_kf]
-                e.Tcr = e.Tcr @ Tcp
-                e.ref_kf = p
+        with self._traj_lock:
+            self._culled_remap.update(remap)
+            for e in self.trajectory:
+                if not e.lost and e.ref_kf in remap:
+                    p, Tcp = remap[e.ref_kf]
+                    e.Tcr = e.Tcr @ Tcp
+                    e.ref_kf = p
         if self.ref_kf in remap:
             self.ref_kf = remap[self.ref_kf][0]
         if self.loop_closer is not None:
@@ -472,7 +496,7 @@ class SlamEngine:
         kf_slot = self._take_kf_slot()
         self.ms = self._run_mapping_step(
             self.ms, fd, res.Tcw, res.assoc, kf_slot, self.ref_kf,
-            self.frame_id, timestamp)
+            self.frame_id, timestamp, ba_ok=True)
         self.ref_kf = kf_slot
         self.last_kf_frame_id = self.frame_id
         # new points take part in tracking at once
@@ -508,8 +532,9 @@ class SlamEngine:
         self.last_fd = None
         self._mono_ref = None
         self._free_kf_slots = set(range(cfg.capacity.max_keyframes))
-        self._culled_remap = {}
-        self.trajectory = []
+        with self._traj_lock:
+            self._culled_remap = {}
+            self.trajectory = []
         if self.loop_closer is not None:
             self.loop_closer.reset()
         self.stats["resets"] = self.stats.get("resets", 0) + 1
@@ -521,7 +546,7 @@ class SlamEngine:
         if self.loop_closer is None:
             self._record_traj(timestamp, None)
             return None
-        Tcw, assoc = self.loop_closer.relocalize(self.ms, fd)
+        Tcw, assoc = self._relocalize(fd)
         if Tcw is None:
             self._record_traj(timestamp, None)
             return None

@@ -62,7 +62,7 @@ def main() -> int:
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         try:
-            eng, poses_gt, _, _, by_site = chip_smoke.phase_loop(smi)
+            eng, poses_gt, _, _, by_site, _ = chip_smoke.phase_loop(smi)
         except RuntimeError as e:         # strict mode: the op that raised
             chain, err = [], e
             while err is not None:            # the GBA thread's error is

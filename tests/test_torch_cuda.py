@@ -540,3 +540,98 @@ def test_system_load_map_relocalizes_with_the_kernel_and_equals_plain(
     (T1, n1, a1), (T2, n2, a2) = outs
     assert torch.equal(T1, T2) and int(n1) == int(n2) >= 50
     assert torch.equal(a1, a2)
+
+
+def _drain(eng, timeout=120.0):
+    import time
+    t_end = time.monotonic() + timeout
+    while eng._jobs or eng._worker_busy:
+        assert time.monotonic() < t_end, "the worker did not drain"
+        time.sleep(0.002)
+
+
+def test_async_engine_on_the_card_matches_the_cpu():
+    """AsyncSlamEngine drained after every frame, on the card (the worker
+    on its own stream, with a yaw jolt that sends tracking through
+    ``track_ref_kf``) and on the CPU: the same keyframes, camera centres
+    within 0.01 m (tests/test_torch_pipeline.py's tolerance against
+    JAX)."""
+    from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                           OrbConfig, STEREO, SlamConfig)
+    from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0,
+                       width=640, height=480, fps=10.0, th_depth=60.0)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=600),
+                     capacity=CapacityConfig(max_keyframes=16,
+                                             max_map_points=4096,
+                                             local_ba_keyframes=8,
+                                             local_ba_points=1024),
+                     sensor=STEREO)
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    poses = synthetic.straight_trajectory(16, step=0.25)
+    c, s = np.cos(0.12), np.sin(0.12)
+    poses[10] = np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0],
+                          [0, 0, 0, 1]], poses[10].dtype) @ poses[10]
+    frames = [synthetic.render_world_stereo(world, cam, T, rng, 1.0)
+              for T in poses]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = AsyncSlamEngine(cfg, enable_loop_closing=False,
+                              device=None if dev == "cuda" else "cpu")
+        assert eng.device.type == dev and (eng._stream is not None) == (
+            dev == "cuda")
+        eng.start()
+        for i, (left, right) in enumerate(frames):
+            assert eng.track_stereo(left, right, 0.1 * i) is not None, i
+            _drain(eng)
+        eng.shutdown()
+        out[dev] = (eng.stats["kf_inserted"], eng.ms.kf_valid.cpu(),
+                    eng.frame_poses())
+    (nk_g, kv_g, p_g), (nk_c, kv_c, p_c) = out["cuda"], out["cpu"]
+    assert nk_g == nk_c >= 3 and torch.equal(kv_g, kv_c)
+    for Tg, Tc in zip(p_g, p_c):
+        cg = -Tg[:3, :3].T @ Tg[:3, 3]
+        cc = -Tc[:3, :3].T @ Tc[:3, 3]
+        assert np.linalg.norm(cg - cc) < 0.01
+
+
+def test_launch_counts_from_two_threads_on_two_streams():
+    """Two threads launch the kernel at once, each on its own stream and
+    under its own site: every launch is counted (the counters' lock), and
+    every result equals the plain version."""
+    import sys
+    import threading
+
+    args = _inputs(1024, 1024, seed=5)
+    ref = tk.hamming_top2_reference(*args)
+    torch.cuda.synchronize()        # the inputs, before two streams read
+    n = 400
+    results = {}
+
+    def run(name):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream), tk.launch_site(name):
+            outs = [tk.hamming_top2(*args) for _ in range(n)]
+        stream.synchronize()
+        results[name] = all(torch.equal(g, r) for o in outs
+                            for g, r in zip(o, ref))
+
+    tk.reset_launch_counts()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(name,))
+                   for name in ("tracking", "mapping")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert results == {"tracking": True, "mapping": True}
+    assert tk.hamming_top2.launches == 2 * n
+    assert tk.hamming_top2.launches_by_site == {"tracking": n, "mapping": n}

@@ -1,7 +1,9 @@
 """The port's stateful entry points run on the CUDA card by default.
 
 ``System(None, None, sensor, config=cfg)``, ``SlamEngine(cfg)``,
-``WindowedSlamEngine(cfg)`` (stereo, RGB-D and mono), ``LoopCloser(cfg, voc)`` and ``streaming.make_window_tracker(cfg, window)``
+``WindowedSlamEngine(cfg)`` (stereo, RGB-D and mono),
+``AsyncSlamEngine(cfg)``, ``LoopCloser(cfg, voc)``,
+``StereoRectifier(maps)`` and ``streaming.make_window_tracker(cfg, window)``
 with no ``device`` take the card, and raise where torch has no CUDA
 device (forced here with ``monkeypatch``, so the tests mean the same on a
 host with a card); an explicit ``device="cpu"`` builds them on the CPU.
@@ -19,9 +21,11 @@ from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
                                        MONOCULAR, OrbConfig, RGBD, STEREO,
                                        SlamConfig)
 from orbslam2_tpu_torch.models import vocabulary as voc_mod
+from orbslam2_tpu_torch.ops import rectify
 from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.runtime import streaming
 from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
+from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
 from orbslam2_tpu_torch.runtime.slam import SlamEngine
 from orbslam2_tpu_torch.runtime.system import System
 from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
@@ -58,6 +62,11 @@ def _build(entry, **kw):
         return System(None, None, STEREO, config=CFG, **kw)
     if entry == "make_window_tracker":
         return streaming.make_window_tracker(CFG, 2, **kw)
+    if entry == "AsyncSlamEngine":
+        return AsyncSlamEngine(CFG, **kw)
+    if entry == "StereoRectifier":
+        m = np.zeros((240, 320), np.float32)
+        return rectify.StereoRectifier(rectify.RectifyMaps(m, m, m, m), **kw)
     voc = voc_mod.default_vocabulary(k=CFG.capacity.vocab_k,
                                      levels=CFG.capacity.vocab_levels)
     return LoopCloser(CFG, voc, **kw)
@@ -66,7 +75,8 @@ def _build(entry, **kw):
 ENTRIES = ["SlamEngine", "LoopCloser", "WindowedSlamEngine",
            "make_window_tracker", "SlamEngine(RGBD)",
            "WindowedSlamEngine(RGBD)", "SlamEngine(MONO)",
-           "WindowedSlamEngine(MONO)", "System"]
+           "WindowedSlamEngine(MONO)", "System", "AsyncSlamEngine",
+           "StereoRectifier"]
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -86,6 +96,10 @@ def test_explicit_cpu_builds(entry, monkeypatch):
     if "SlamEngine" in entry or entry == "System":
         assert obj.ms.kf_valid.device.type == "cpu"
         assert obj.loop_closer.device == torch.device("cpu")
+    if entry == "AsyncSlamEngine":
+        assert obj._stream is None          # a worker stream on the card only
+    if entry == "StereoRectifier":
+        assert all(m.device.type == "cpu" for m in obj._dev_maps)
 
 
 def test_default_is_the_card_when_there_is_one(monkeypatch):

@@ -13,8 +13,10 @@ bench.py's mono walk through ``SlamEngine.track_monocular`` and
 ``WindowedSlamEngine.track_monocular`` (the H/F initializer, then one
 window), then a ``System`` through ``tools.replay.replay``, its map saved
 (``runtime/serialization.py``) and loaded by a second ``System``, which
-relocalizes, and check that nothing of jax or ``orbslam2_tpu`` was
-loaded.
+relocalizes, stereo frames through ``AsyncSlamEngine`` (its worker maps
+them; ``runtime/pipeline.py``) and a pair through ``StereoRectifier``'s
+host and device paths (``ops/rectify.py``), and check that nothing of
+jax or ``orbslam2_tpu`` was loaded.
 Also: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -36,6 +38,8 @@ import numpy as np, torch
 torch.set_num_threads(2)
 import orbslam2_tpu_torch
 import chip_smoke  # noqa: F401  (the GPU entry point imports no jax)
+import orbslam2_tpu_torch.tools.async_orbit_spread  # noqa: F401
+import orbslam2_tpu_torch.tools.orbit_spread  # noqa: F401
 from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
                                        OrbConfig, STEREO, SlamConfig)
 from orbslam2_tpu_torch.runtime.slam import SlamEngine
@@ -159,6 +163,24 @@ with tempfile.TemporaryDirectory() as d:
 assert sys2.engine.localization_only and sys2.get_tracking_state() == 3
 assert sys2.track_stereo(*frames[2], 5.0) is not None     # relocalized
 assert sys2.get_current_covariance().shape == (6, 6)
+from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
+aeng = AsyncSlamEngine(cfg, device="cpu")      # loop closing on
+aeng.start()
+aout = [aeng.track_stereo(left, right, 0.1 * i)
+        for i, (left, right) in enumerate(frames[:5])]
+aeng.shutdown()
+assert all(T is not None for T in aout) and not aeng._worker.is_alive()
+assert aeng.stats["kf_inserted"] >= 2 and len(aeng.frame_poses()) == 5
+from orbslam2_tpu_torch.ops import rectify
+K = np.array([[225.0, 0, 160.0], [0, 225.0, 120.0], [0, 0, 1.0]])
+blk = {"K": K, "D": np.array([[-0.1, 0.01, 0.0, 0.0, 0.0]]), "R": np.eye(3),
+       "P": np.hstack([K, np.zeros((3, 1))]), "width": 320, "height": 240}
+rect = rectify.load_rectification(
+    {f"{s}.{k}": v for s in ("LEFT", "RIGHT") for k, v in blk.items()},
+    device="cpu")
+rl, rr = rect.remap_pair(*frames[0])
+hl, hr = rect(*frames[0])
+assert float((rl - torch.from_numpy(hl)).abs().max()) < 1e-3
 bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
              or m.startswith("orbslam2_tpu.")
              or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
