@@ -137,6 +137,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  the last 8 under torch.profiler: kernels and device ms
                  per CUDA stream and the device time both streams were
                  busy at once;
+ 21. drivers   — phase 4's 40 jolted corridor frames and phase 13's RGB-D
+                 frames written to disk with utils/png.write_png as KITTI,
+                 TUM (gray as RGB, depth at factor 5000, 0 past 13.107 m;
+                 the share blanked printed) and EuRoC layouts (zero
+                 distortion, R = I, P = K), each with a settings file of
+                 the bench camera and 1000 features; run_kitti_stereo,
+                 run_tum_rgbd and run_euroc_stereo (no device given):
+                 all 40 frames tracked, ATE < 0.15 m from the trajectory
+                 file read back, the KITTI and TUM runs' track_ref_kf
+                 launches replayed with the plain version equal;
+                 ReplayReport's median and mean ms beside phase 4's, PNG
+                 decode ms a frame, EuRoC host-rectify and remap_pair ms
+                 a pair; a StreamNode (queue of 4) over a fresh System: 16
+                 frames each pushed after the last pose (16 processed, 0
+                 dropped), then 24 at once (processed + dropped = 24, ≥ 1
+                 dropped), stop() clean, ms a processed frame;
+                 ArDemo.insert_cube on that map (or test_extras.py's plane
+                 scene if it has < 50 points seen > 5 times), detect_plane
+                 with fixed hypotheses on the card against a CPU copy
+                 (normal up to sign, d, origin within 1e-4), its ms;
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
@@ -146,8 +166,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  and after phase 20's profiled window (the kernels line's
                  ``host_us_by_point``).
 No profiler session of phase 20 or 9 precedes a timed measurement: phases
-run in the order 1-8, 10-19, 20's corridor, orbit and rectify, 9's timed
-part, 20's profiled window, 9's device times.  (Phases 12, 16 and 18
+run in the order 1-8, 10-19, 20's corridor, orbit and rectify, 21, 9's
+timed part, 20's profiled window, 9's device times.  (Phases 12, 16 and 18
 profile windows of their own, before phase 19.)
 Every time printed carries the card's name and power limit.  The line
 before the last is the kernels' JSON record (launches per path); the last
@@ -160,6 +180,7 @@ import dataclasses
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -179,6 +200,36 @@ RELOC_FRAME = 2
 # rig meets): the motion model mispredicts there and on the frames after,
 # so the engine falls back to TrackReferenceKeyFrame on its main path.
 SHAKE_FRAME, SHAKE_YAW = 20, 0.12
+
+
+# the host renders the synthetic frames on this many threads (numpy's array
+# work releases the GIL); the frames are bit-equal to a sequential render
+RENDER_THREADS = 8
+
+
+class _DrawnNoise:
+    """Stands in for the generator inside one render call: hands back, in
+    order, the noise arrays drawn for that call from the real generator."""
+
+    def __init__(self, arrays):
+        self._arrays = list(arrays)
+
+    def normal(self, loc, scale, size):
+        return self._arrays.pop(0)
+
+
+def render_frames(render, world, cam, poses, rng, images=2, **kw):
+    """``[render(world, cam, T, rng, 1.0, **kw) for T in poses]`` on
+    RENDER_THREADS threads.  Each call's noise (``images`` arrays: 2 for a
+    stereo pair) is drawn here from ``rng`` in the sequential order, so the
+    frames and the generator's state after are the sequential ones."""
+    shape = (cam.height, cam.width)
+    draws = [[rng.normal(0.0, 1.0, shape) for _ in range(images)]
+             for _ in poses]
+    with ThreadPoolExecutor(RENDER_THREADS) as pool:
+        return list(pool.map(
+            lambda a: render(world, cam, a[0], _DrawnNoise(a[1]), 1.0, **kw),
+            zip(poses, draws)))
 
 
 def phase_device():
@@ -464,8 +515,8 @@ def phase_slice(smi):
     rng = np.random.default_rng(0)
     world = synthetic.make_world(rng)
     poses_gt = shaken_trajectory()
-    frames = [synthetic.render_world_stereo(world, cfg.camera, T, rng,
-                                            noise=1.0) for T in poses_gt]
+    frames = render_frames(synthetic.render_world_stereo, world, cfg.camera,
+                           poses_gt, rng)
     eng = SlamEngine(cfg, enable_loop_closing=False)
     if eng.device.type != "cuda":
         raise AssertionError(f"slice: SlamEngine chose {eng.device}, not "
@@ -594,8 +645,8 @@ def phase_loop(smi):
     rng = np.random.default_rng(0)
     scene = orbit_scene(rng, z_center=ORBIT_Z)
     poses_gt = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS)
-    frames = [synthetic.render_stereo(scene, cfg.camera, T, rng, 1.0)
-              for T in poses_gt]
+    frames = render_frames(synthetic.render_stereo, scene, cfg.camera,
+                           poses_gt, rng)
     eng = SlamEngine(cfg)            # loop closing on, the card
     lc = eng.loop_closer
     layers = {name: [] for name in LOOP_LAYERS + ("gba_chunk", "gba_merge")}
@@ -958,8 +1009,8 @@ def phase_bench_slam(smi):
     # BENCH_FRAMES for the leg, then one window more for phase 12's profile
     poses_gt = synthetic.straight_trajectory(BENCH_FRAMES + 4, step=0.25)
     t0 = time.perf_counter()
-    frames = [synthetic.render_world_stereo(world, cfg.camera, T, rng,
-                                            noise=1.0) for T in poses_gt]
+    frames = render_frames(synthetic.render_world_stereo, world, cfg.camera,
+                           poses_gt, rng)
     render_s = time.perf_counter() - t0
     eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
     reset_launch_counts()              # the bench SLAM leg's count
@@ -1097,8 +1148,8 @@ def rgbd_config(capacity=None):
 def render_rgbd(world, cam, poses, rng):
     from orbslam2_tpu_torch.utils import synthetic
 
-    return [synthetic.render_world(world, cam, T, rng, 1.0, with_depth=True)
-            for T in poses]
+    return render_frames(synthetic.render_world, world, cam, poses, rng,
+                         images=1, with_depth=True)
 
 
 def phase_rgbd_slice(smi):
@@ -1152,7 +1203,7 @@ def phase_rgbd_slice(smi):
                              "track_ref_kf's live input")
     if not err < 0.15:
         raise AssertionError(f"rgbd: ATE {err} m (need < 0.15)")
-    return eng, world, rng, poses_gt, by_site
+    return eng, world, rng, poses_gt, by_site, frames
 
 
 def phase_bench_rgbd(smi):
@@ -1501,8 +1552,9 @@ def phase_mono_slice(smi):
                                  z_near=2.5)
     poses_gt = [synthetic.look_ahead_pose(np.array([0.3 * i, 0.0, 0.1 * i]))
                 for i in range(MONO_FRAMES)]
-    frames = [_u8(synthetic.render(scene, cfg.camera, T, rng, 1.0))
-              for T in poses_gt]
+    frames = [_u8(f) for f in render_frames(synthetic.render, scene,
+                                            cfg.camera, poses_gt, rng,
+                                            images=1)]
     eng = SlamEngine(cfg, enable_loop_closing=False)
     if eng.device.type != "cuda":
         raise AssertionError(f"mono: SlamEngine chose {eng.device}")
@@ -1608,8 +1660,9 @@ def phase_bench_mono(smi):
     poses_gt = [synthetic.look_ahead_pose(np.array([0.18 * i, 0.0, 0.04 * i]))
                 for i in range(n_m + 4)]
     t0 = time.perf_counter()
-    frames = [_u8(synthetic.render_world(world, cfg.camera, T, rng,
-                                         noise=1.0)) for T in poses_gt]
+    frames = [_u8(f) for f in render_frames(synthetic.render_world, world,
+                                            cfg.camera, poses_gt, rng,
+                                            images=1)]
     render_s = time.perf_counter() - t0
     eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
     if eng.device.type != "cuda":
@@ -2191,8 +2244,8 @@ def phase_async_orbit(smi, frames, poses_gt, scene):
     more = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS,
                          stop=ORBIT_FRAMES + ASYNC_ORBIT_EXTRA)[len(frames):]
     rng = np.random.default_rng(20)
-    frames = frames + [synthetic.render_stereo(scene, cfg.camera, T, rng, 1.0)
-                       for T in more]
+    frames = frames + render_frames(synthetic.render_stereo, scene,
+                                    cfg.camera, more, rng)
     poses_gt = poses_gt + more
     eng = AsyncSlamEngine(cfg)
     log = _spy_async(eng)
@@ -2331,6 +2384,385 @@ def phase_rectify(smi, reps=50):
     return {"device_ms": dev_ms, "host_ms": host_ms, "max_err": err}
 
 
+# phase 21: the drivers (tools/replay.py, runtime/stream_node.py, utils/ar.py)
+TUM_FACTOR = 5000.0            # run_tum_rgbd's fixed depth factor
+STREAM_PACED, STREAM_QUEUE = 16, 4
+AR_MIN_POINTS, AR_TOL = 50, 1e-4
+EUROC_T0 = 1403636579763555584  # a EuRoC MH_01 stamp, ns
+
+
+def _euroc_identity_blocks(cam):
+    """LEFT./RIGHT. blocks with zero distortion, R = I and P = K: the
+    rectified frames are the rendered ones up to bilinear rounding."""
+    K = np.array([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
+                  [0.0, 0.0, 1.0]])
+    lines = []
+    for side in ("LEFT", "RIGHT"):
+        lines += [f"{side}.width: {cam.width}",
+                  f"{side}.height: {cam.height}"]
+        for key, m in (("K", K), ("D", np.zeros((1, 5))), ("R", np.eye(3)),
+                       ("P", np.hstack([K, np.zeros((3, 1))]))):
+            lines += [f"{side}.{key}: !!opencv-matrix",
+                      f"   rows: {m.shape[0]}", f"   cols: {m.shape[1]}",
+                      "   dt: d", "   data:[" + ", ".join(
+                          repr(float(x)) for x in m.ravel()) + "]"]
+    return "\n".join(lines) + "\n"
+
+
+def write_driver_layouts(root, corridor, rgbd_frames, poses_gt, cam,
+                         n_features):
+    """Phase 4's stereo frames as KITTI and EuRoC layouts and phase 13's
+    RGB-D frames as a TUM layout (gray as 8-bit RGB, depth as 16-bit at
+    factor 5000, 0 past 65535 / 5000 m), each with a settings file
+    carrying ``cam`` and ``n_features``; returns the paths, the share of
+    depth pixels blanked, and the ms spent writing."""
+    import os
+
+    from orbslam2_tpu_torch.utils import png, trajectory
+
+    t0 = time.perf_counter()
+    u8 = [(np.clip(left, 0, 255).astype(np.uint8),
+           np.clip(right, 0, 255).astype(np.uint8))
+          for left, right in corridor]
+    ts = [0.1 * i for i in range(len(u8))]
+    paths = {}
+    for name in ("kitti", "tum", "euroc"):
+        settings = os.path.join(root, f"{name}.yaml")
+        _write_settings(settings, cam)
+        with open(settings, "a") as f:
+            f.write(f"ORBextractor.nFeatures: {n_features}\n")
+            if name == "euroc":
+                f.write(_euroc_identity_blocks(cam))
+        paths[name] = (os.path.join(root, name), settings)
+    kitti = paths["kitti"][0]
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(kitti, sub))
+    for i, (left, right) in enumerate(u8):
+        png.write_png(os.path.join(kitti, "image_0", f"{i:06d}.png"), left)
+        png.write_png(os.path.join(kitti, "image_1", f"{i:06d}.png"), right)
+    with open(os.path.join(kitti, "times.txt"), "w") as f:
+        f.write("".join(f"{t:e}\n" for t in ts))
+    euroc = paths["euroc"][0]
+    for sub in ("cam0", "cam1"):
+        os.makedirs(os.path.join(euroc, sub, "data"))
+    for i, pair in enumerate(u8):
+        for sub, img in zip(("cam0", "cam1"), pair):
+            png.write_png(os.path.join(euroc, sub, "data",
+                                       f"{EUROC_T0 + 100_000_000 * i}.png"),
+                          img)
+    tum = paths["tum"][0]
+    os.makedirs(os.path.join(tum, "rgb"))
+    os.makedirs(os.path.join(tum, "depth"))
+    blanked, rgb_txt, depth_txt = [], [], []
+    for t, (gray, depth) in zip(ts, rgbd_frames):
+        g = np.clip(gray, 0, 255).astype(np.uint8)
+        d = depth.astype(np.float64) * TUM_FACTOR
+        far = d > 65535
+        blanked.append(float(np.mean(far)))
+        png.write_png(os.path.join(tum, "rgb", f"{t:.6f}.png"),
+                      np.stack([g, g, g], -1))
+        png.write_png(os.path.join(tum, "depth", f"{t:.6f}.png"),
+                      np.where(far, 0, d).astype(np.uint16))
+        rgb_txt.append(f"{t:.6f} rgb/{t:.6f}.png")
+        depth_txt.append(f"{t:.6f} depth/{t:.6f}.png")
+    with open(os.path.join(tum, "rgb.txt"), "w") as f:
+        f.write("# color images\n" + "\n".join(rgb_txt) + "\n")
+    with open(os.path.join(tum, "depth.txt"), "w") as f:
+        f.write("# depth maps\n" + "\n".join(depth_txt) + "\n")
+    trajectory.save_tum(os.path.join(tum, "groundtruth.txt"), ts, poses_gt)
+    return paths, float(np.mean(blanked)), 1e3 * (time.perf_counter() - t0)
+
+
+def _centres_ate(est, gt):
+    return float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1))))
+
+
+def _timed_decode(log):
+    """Wrap the loaders' image readers so that each read's ms is kept in
+    ``log``; returns restore()."""
+    from orbslam2_tpu_torch.utils import datasets
+
+    gray, depth = datasets._imread_gray, datasets._imread_depth
+
+    def wrap(fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            log.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    datasets._imread_gray, datasets._imread_depth = wrap(gray), wrap(depth)
+
+    def restore():
+        datasets._imread_gray, datasets._imread_depth = gray, depth
+
+    return restore
+
+
+def run_dataset_drivers(smi, paths, poses_gt, slice_ms, device=None):
+    """Phase 21 (a): run_kitti_stereo, run_tum_rgbd and run_euroc_stereo
+    over the written layouts, each writing its trajectory file; every
+    frame tracked, ATE from the file read back against the truth, the
+    track_ref_kf matching calls of the KITTI and TUM runs replayed with
+    the plain version; ReplayReport's median and mean ms, PNG decode ms a
+    frame, and for EuRoC the host-rectify ms a pair."""
+    import os
+
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.ops import rectify
+    from orbslam2_tpu_torch.tools import replay as replay_mod
+    from orbslam2_tpu_torch.utils import datasets, trajectory
+
+    gt = trajectory.centers_from_poses(poses_gt)
+    n = len(poses_gt)
+    results, sites = {}, {}
+    for name in ("kitti", "tum", "euroc"):
+        seq, settings = paths[name]
+        traj = os.path.join(os.path.dirname(seq), f"{name}_traj.txt")
+        decode_ms, rect_ms = [], []
+        records, restore_matches = _record_matches("track_ref_kf")
+        restore_decode = _timed_decode(decode_ms)
+        host_rect = rectify.StereoRectifier.__call__
+
+        def timed_rect(self, left, right):
+            t0 = time.perf_counter()
+            out = host_rect(self, left, right)
+            rect_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        rectify.StereoRectifier.__call__ = timed_rect
+        ht2.reset_launch_counts()          # this driver's count
+        t0 = time.perf_counter()
+        try:
+            if name == "kitti":
+                rep = replay_mod.run_kitti_stereo(seq, settings, traj,
+                                                  device=device)
+            elif name == "tum":
+                rep = replay_mod.run_tum_rgbd(seq, settings, traj,
+                                              device=device)
+            else:
+                rep = replay_mod.run_euroc_stereo(seq, settings, None, traj,
+                                                  device=device)
+        finally:
+            restore_matches()
+            restore_decode()
+            rectify.StereoRectifier.__call__ = host_rect
+        wall_s = time.perf_counter() - t0
+        by_site = dict(ht2.hamming_top2.launches_by_site)
+        for site, k in by_site.items():
+            sites[f"{name}/{site}"] = k
+        same = _replay_plain(records)
+        if name == "kitti":
+            est = np.loadtxt(traj).reshape(-1, 12)[:, [3, 7, 11]]
+        else:
+            _ts, est = trajectory.load_tum(traj)
+        # TUM: against its groundtruth.txt, read back by the loader
+        truth = datasets.load_tum_groundtruth(seq)[1] if name == "tum" \
+            else gt
+        err = _centres_ate(est, truth) if len(est) == n else float("inf")
+        res = {"median_ms": rep.median_ms, "mean_ms": rep.mean_ms,
+               "decode_ms": sum(decode_ms) / max(rep.n_frames, 1),
+               "ate_m": err, "tracked": rep.n_tracked, "frames": rep.n_frames,
+               "wall_s": wall_s, "sites": by_site, "replayed": len(records),
+               "equal": same}
+        if rect_ms:
+            res["host_rect_ms"] = float(np.median(rect_ms))
+        results[name] = res
+        print(f"[drivers] {name}: {rep.n_tracked}/{rep.n_frames} tracked, "
+              f"trajectory lines {len(est)}, ATE {err:.4f} m; ReplayReport "
+              f"median {rep.median_ms:.1f} / mean {rep.mean_ms:.1f} ms "
+              f"(phase 4's median {slice_ms:.1f} ms, "
+              f"{rep.median_ms / slice_ms:.2f}×); PNG decode "
+              f"{res['decode_ms']:.2f} ms a frame"
+              + (f"; host rectify {res['host_rect_ms']:.2f} ms a pair"
+                 if rect_ms else "")
+              + f"; hamming_top2 launches by path {by_site}; "
+              f"{len(records)} track_ref_kf matching calls replayed with "
+              f"the plain version: equal {same}; {wall_s:.1f} s ({smi})",
+              flush=True)
+        if rep.n_frames != n or rep.n_tracked != n or len(est) != n:
+            raise AssertionError(f"drivers: {name} tracked {rep.n_tracked} "
+                                 f"of {rep.n_frames} frames, {len(est)} "
+                                 f"trajectory lines (need {n})")
+        if not err < 0.15:
+            raise AssertionError(f"drivers: {name} ATE {err} m (need < "
+                                 f"0.15)")
+        if not same:
+            raise AssertionError(f"drivers: {name}: kernel and plain differ "
+                                 f"on track_ref_kf's live input")
+        if name != "euroc" and (by_site.get("track_ref_kf", 0) < 1
+                                or not records):
+            raise AssertionError(f"drivers: {name}: track_ref_kf never "
+                                 f"launched hamming_top2")
+    return results, sites
+
+
+def run_stream_node(smi, paths, device=None):
+    """Phase 21 (b): a StreamNode (queue of 4, started) over a fresh System
+    from the KITTI settings, fed the frames read back by
+    iter_kitti_stereo: the first STREAM_PACED each after the previous
+    frame's pose came out (all processed, none dropped), the rest in one
+    burst (processed + dropped = the rest, ≥ 1 dropped); stop() raises
+    nothing."""
+    import threading
+
+    from orbslam2_tpu_torch.config import STEREO
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.runtime.stream_node import StreamNode
+    from orbslam2_tpu_torch.runtime.system import System
+    from orbslam2_tpu_torch.utils import datasets
+
+    seq, settings = paths["kitti"]
+    frames = list(datasets.iter_kitti_stereo(seq))
+    system = System(None, settings, STEREO, device=device)
+    posed, stamps = threading.Event(), []
+
+    def on_pose(Tcw, t):
+        stamps.append(time.perf_counter())
+        posed.set()
+
+    node = StreamNode(system, on_pose=on_pose, queue_capacity=STREAM_QUEUE)
+    ht2.reset_launch_counts()              # the stream node's count
+    node.start()
+    paced_ms = []
+    for left, right, t in frames[:STREAM_PACED]:
+        posed.clear()
+        t0 = time.perf_counter()
+        node.on_image_stereo(left, right, t)
+        if not posed.wait(timeout=120.0):
+            node.stop()
+            raise AssertionError("stream node: no pose within 120 s")
+        paced_ms.append(1e3 * (stamps[-1] - t0))
+    paced = (node.processed, node.dropped)
+    t0 = time.perf_counter()
+    for left, right, t in frames[STREAM_PACED:]:
+        node.on_image_stereo(left, right, t)
+    node.stop()
+    burst_s = time.perf_counter() - t0
+    burst = (node.processed - paced[0], node.dropped - paced[1])
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+    rest = len(frames) - STREAM_PACED
+    print(f"[drivers] stream node: paced {paced[0]} processed / "
+          f"{paced[1]} dropped, {float(np.median(paced_ms[1:])):.1f} ms a "
+          f"processed frame (push to pose, median after frame 0); burst of "
+          f"{rest}: {burst[0]} processed / {burst[1]} dropped in "
+          f"{burst_s:.2f} s ({1e3 * burst_s / max(burst[0], 1):.1f} ms a "
+          f"processed frame), state {system.get_tracking_state()}; "
+          f"hamming_top2 launches by path {by_site} ({smi})", flush=True)
+    if paced != (STREAM_PACED, 0):
+        raise AssertionError(f"stream node: paced frames {paced} (need "
+                             f"{STREAM_PACED} processed, 0 dropped)")
+    if sum(burst) != rest or burst[1] < 1:
+        raise AssertionError(f"stream node: burst {burst} (need a sum of "
+                             f"{rest}, ≥ 1 dropped)")
+    return system, {"paced_ms": float(np.median(paced_ms[1:])),
+                    "burst": burst}, by_site
+
+
+def run_ar(smi, system):
+    """Phase 21 (c): ArDemo.insert_cube on (b)'s map when it holds ≥ 50
+    points seen more than 5 times, else on tests/test_extras.py's plane
+    scene; then detect_plane with fixed hypotheses on that map against
+    the same call on a CPU copy: the normal equal up to sign, d and the
+    origin within AR_TOL; its CUDA-event ms on the card."""
+    import types
+
+    from orbslam2_tpu_torch.utils import ar
+
+    eng = system.engine
+    ms = eng.ms
+    n_cand = int((ms.mp_valid & (ms.mp_n_obs > 5)).sum())
+    source = "phase 21 (b)'s map"
+    if n_cand < AR_MIN_POINTS:
+        rng = np.random.default_rng(0)
+        on = np.stack([rng.uniform(-5, 5, 200),
+                       np.full(200, 2.0) + rng.normal(0, 0.005, 200),
+                       rng.uniform(5, 25, 200)], -1)
+        off = np.stack([rng.uniform(-5, 5, 60), rng.uniform(-3, 1.5, 60),
+                        rng.uniform(5, 25, 60)], -1)
+        pts = torch.from_numpy(np.concatenate([on, off]).astype(np.float32))
+        ms = types.SimpleNamespace(
+            mp_pos=pts.to(eng.device),
+            mp_valid=torch.ones(260, dtype=torch.bool, device=eng.device),
+            mp_n_obs=torch.full((260,), 8, dtype=torch.int32,
+                                device=eng.device))
+        eng = types.SimpleNamespace(ms=ms, device=eng.device, cfg=eng.cfg)
+        source = "tests/test_extras.py's plane scene"
+    demo = ar.ArDemo(eng, cube_size=0.5)
+    inserted = demo.insert_cube()
+    idx = ar.draw_hypotheses(ms.mp_valid.cpu() & (ms.mp_n_obs.cpu() > 5),
+                             64, torch.Generator().manual_seed(21))
+    args = (ms.mp_pos, ms.mp_valid, ms.mp_n_obs)
+    fit = ar.detect_plane(*args, idx=idx.to(eng.device))
+    ref = ar.detect_plane(*(a.cpu() for a in args), idx=idx)
+    sign = float(torch.sign(torch.dot(fit.n.cpu(), ref.n))) or 1.0
+    err = max(float((sign * fit.n.cpu() - ref.n).abs().max()),
+              abs(sign * float(fit.d) - float(ref.d)),
+              float((fit.origin.cpu() - ref.origin).abs().max()))
+    ms_call = _cuda_ms(lambda: ar.detect_plane(*args, idx=idx.to(
+        eng.device)), reps=20, warmup=3) if eng.device.type == "cuda" \
+        else float("nan")
+    print(f"[drivers] AR on {source} ({n_cand} points seen > 5 times in "
+          f"(b)'s map): insert_cube {inserted}, planes {len(demo.planes)}; "
+          f"detect_plane on {eng.device} ok {bool(fit.ok)}, n "
+          f"{np.round(fit.n.cpu().numpy(), 4).tolist()}, d "
+          f"{float(fit.d):.4f}; max |card − CPU| {err:.2e} (tolerance "
+          f"{AR_TOL}); {ms_call:.3f} ms a call (CUDA events) ({smi})",
+          flush=True)
+    if bool(fit.ok) != bool(ref.ok) or not err <= AR_TOL:
+        raise AssertionError(f"AR: detect_plane on the card and the CPU "
+                             f"differ by {err} (ok {bool(fit.ok)} / "
+                             f"{bool(ref.ok)})")
+    return {"ms": ms_call, "err": err, "inserted": inserted,
+            "source": source}
+
+
+def phase_drivers(smi, corridor, rgbd_frames, slice_ms):
+    """Phase 21: the dataset replay drivers, the stream node and the AR
+    demo on the card (no device given), over phase 4's corridor and phase
+    13's RGB-D frames written to disk at the bench widths."""
+    import os
+    import tempfile
+
+    from orbslam2_tpu_torch.ops import rectify
+    from orbslam2_tpu_torch.utils import datasets
+
+    cfg = bench_config()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        paths, blanked, write_ms = write_driver_layouts(
+            root, corridor, rgbd_frames, shaken_trajectory(), cfg.camera,
+            cfg.orb.n_features)
+        print(f"[drivers] layouts written in {write_ms:.0f} ms: KITTI, TUM "
+              f"(depth at factor {TUM_FACTOR:.0f}: {100 * blanked:.2f}% of "
+              f"pixels past {65535 / TUM_FACTOR:.3f} m written as 0), EuRoC "
+              f"({smi})", flush=True)
+        results, sites = run_dataset_drivers(smi, paths, shaken_trajectory(),
+                                             slice_ms)
+        seq, settings = paths["euroc"]
+        rect = rectify.load_rectification(settings)
+        left, right, _t = next(datasets.iter_euroc_stereo(seq))
+        lt, rt = (torch.from_numpy(x).cuda() for x in (left, right))
+        eu = results["euroc"]
+        eu["remap_pair_ms"] = _cuda_ms(lambda: rect.remap_pair(lt, rt),
+                                       reps=50)
+        print(f"[drivers] euroc: remap_pair {eu['remap_pair_ms']:.4f} ms a "
+              f"{cfg.camera.width}x{cfg.camera.height} pair (CUDA events) "
+              f"against host rectify {eu['host_rect_ms']:.2f} ms ({smi})",
+              flush=True)
+        system, stream, stream_sites = run_stream_node(smi, paths)
+        for site, k in stream_sites.items():
+            sites[f"stream/{site}"] = k
+        results["stream"] = stream
+        results["ar"] = run_ar(smi, system)
+        del system
+    results["blanked"] = blanked
+    results["s"] = time.perf_counter() - t0
+    print(f"[drivers] phase 21 in {results['s']:.1f} s ({smi})", flush=True)
+    return sites, results
+
+
 def main():
     smi = phase_device()
     phase_build(smi)
@@ -2349,7 +2781,8 @@ def main():
     eng, frames, poses_gt, bench_sites, slam = phase_bench_slam(smi)
     loc_sites, loc = phase_bench_loc(eng, frames, poses_gt, smi)
     del eng, frames
-    eng, world, rng, poses_gt, rgbd_sites = phase_rgbd_slice(smi)
+    (eng, world, rng, poses_gt, rgbd_sites,
+     rgbd_frames) = phase_rgbd_slice(smi)
     weng, wframes, wposes, bench_rgbd_sites, rgbd = phase_bench_rgbd(smi)
     localization_sites, _ = phase_localization(
         eng, world, rng, poses_gt,
@@ -2367,6 +2800,9 @@ def main():
         async_sites[site] = async_sites.get(site, 0) + n
     del orbit, orbit_world
     rect = phase_rectify(smi)
+    driver_sites, drivers = phase_drivers(smi, corridor, rgbd_frames,
+                                          slice_ms)
+    del rgbd_frames
     k = phase_kernel_times(smi, main_inputs)
     asyn["both_ms"] = phase_async_profiled(smi, corridor)
     del corridor
@@ -2382,7 +2818,8 @@ def main():
                "mono slice (phase 17)": mono_sites,
                "bench mono (phase 18)": bench_mono_sites,
                "System (phase 19)": system_sites,
-               "async (phase 20)": async_sites}
+               "async (phase 20)": async_sites,
+               "drivers (phase 21)": driver_sites}
     print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
           f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
@@ -2403,7 +2840,13 @@ def main():
           f"{asyn['kf_per_frame']:.4f} KFs a frame, busy mapper "
           f"{100 * asyn['busy_share']:.1f}%, both streams busy "
           f"{asyn['both_ms']:.3f} ms; remap_pair {rect['device_ms']:.4f} "
-          f"ms / host {rect['host_ms']:.3f} ms ({smi})", flush=True)
+          f"ms / host {rect['host_ms']:.3f} ms; drivers median / mean ms "
+          + "; ".join(f"{n} {drivers[n]['median_ms']:.1f} / "
+                      f"{drivers[n]['mean_ms']:.1f} (decode "
+                      f"{drivers[n]['decode_ms']:.2f})"
+                      for n in ("kitti", "tum", "euroc"))
+          + f"; stream node {drivers['stream']['paced_ms']:.1f} ms a frame; "
+          f"detect_plane {drivers['ar']['ms']:.3f} ms ({smi})", flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

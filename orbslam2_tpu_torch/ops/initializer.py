@@ -334,16 +334,17 @@ def initialize_mono(cam: cam_mod.Camera, p1: torch.Tensor, p2: torch.Tensor,
                     points=_at(X, best), good=_at(good, best), used_h=use_h)
 
 
-def nanmedian(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.nanmedian`` of a 1-D tensor: the mean of the two middle finite
+def nanmedian(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``jnp.nanmedian`` along ``dim``: the mean of the two middle finite
     values when their count is even (``torch.nanmedian`` returns the lower
     one), NaN when there is none."""
-    s = torch.sort(x).values                       # NaN sorts last
-    n = torch.sum(~torch.isnan(x)).to(x.dtype)
+    s = torch.sort(x, dim=dim).values              # NaN sorts last
+    n = torch.sum(~torch.isnan(x), dim=dim, keepdim=True).to(x.dtype)
     q = 0.5 * (n - 1.0)
     low, high = torch.floor(q), torch.ceil(q)
     w_high = q - low
     w_low = 1.0 - w_high
-    low = torch.clamp(torch.minimum(low, n - 1.0), min=0.0)
-    high = torch.clamp(torch.minimum(high, n - 1.0), min=0.0)
-    return _at(s, low) * w_low + _at(s, high) * w_high
+    low = torch.clamp(torch.minimum(low, n - 1.0), min=0.0).long()
+    high = torch.clamp(torch.minimum(high, n - 1.0), min=0.0).long()
+    return (torch.gather(s, dim, low) * w_low
+            + torch.gather(s, dim, high) * w_high).squeeze(dim)

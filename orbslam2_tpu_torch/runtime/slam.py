@@ -86,6 +86,7 @@ class SlamEngine:
         self.last_assoc = None        # device [N] int32
         self.last_inlier = None       # device [N] bool
         self.last_fd = None
+        self._last_image = None       # the viewer's frame (mImGray), host
         self.trajectory: List[TrajectoryEntry] = []
         self.localization_only = False
         self._free_kf_slots = set(range(cfg.capacity.max_keyframes))
@@ -105,6 +106,7 @@ class SlamEngine:
     def track_stereo(self, left: np.ndarray, right: np.ndarray,
                      timestamp: float) -> Optional[np.ndarray]:
         """One rectified uint8 stereo pair → Tcw [4, 4] or None (lost)."""
+        self._last_image = left
         return self._track_common(self._upload_pair(left, right), timestamp)
 
     def _upload_pair(self, left: np.ndarray, right: np.ndarray):
@@ -119,6 +121,7 @@ class SlamEngine:
                    timestamp: float) -> Optional[np.ndarray]:
         """One uint8 gray image and its registered float32 depth image
         (the camera's units) → Tcw [4, 4] or None (lost)."""
+        self._last_image = gray
         return self._track_common(self._upload_rgbd(gray, depth), timestamp)
 
     def track_monocular(self, gray: np.ndarray,
@@ -126,6 +129,7 @@ class SlamEngine:
         """One uint8 gray image → Tcw [4, 4] or None (not initialized yet,
         or lost).  The scale is the bootstrap's: the median depth of the
         first two keyframes' points is 1."""
+        self._last_image = gray
         return self._track_common(self._upload_mono(gray), timestamp)
 
     def _upload_mono(self, gray: np.ndarray):
@@ -143,6 +147,66 @@ class SlamEngine:
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    # ----------------------------------------------------- frame overlay
+    def _overlay_data(self):
+        """(xy_raw [N,2], valid [N], matched [N]) of the latest tracked
+        frame on the host, or None before the first frame."""
+        fd = self.last_fd
+        if fd is None or self.last_assoc is None:
+            return None
+        matched = self.last_assoc >= 0
+        if self.last_inlier is not None:
+            matched = matched & self.last_inlier
+        return (fd.xy_raw.cpu().numpy(), fd.valid.cpu().numpy(),
+                matched.cpu().numpy())
+
+    def frame_overlay(self) -> Optional[bytes]:
+        """FrameDrawer::DrawFrame analogue (src/FrameDrawer.cc:34-206):
+        the current gray frame annotated with keypoints (green = tracked
+        map-point inlier, red = unmatched) and the state text line,
+        encoded as PNG by PIL.  Composed lazily — the live viewer calls
+        this at its own poll rate, so the tracking hot path never pays for
+        it."""
+        import io
+
+        from PIL import Image, ImageDraw
+        img = self._last_image
+        ov = self._overlay_data()
+        if img is None or ov is None:
+            return None
+        xy, valid, matched = ov
+        im = Image.fromarray(np.clip(np.asarray(img), 0,
+                                     255).astype(np.uint8)).convert("RGB")
+        d = ImageDraw.Draw(im)
+        n_match = 0
+        for i in range(len(xy)):
+            if not valid[i]:
+                continue
+            x, y = float(xy[i, 0]), float(xy[i, 1])
+            if matched[i]:
+                n_match += 1
+                d.rectangle([x - 3, y - 3, x + 3, y + 3],
+                            outline=(0, 255, 0))
+            else:
+                d.ellipse([x - 1.5, y - 1.5, x + 1.5, y + 1.5],
+                          outline=(255, 80, 80))
+        if self.state == tracking.LOST:
+            text = "TRYING TO RELOCALIZE"
+        elif self.state != tracking.OK:
+            text = "WAITING FOR IMAGES" if self.state < 1 \
+                else "TRYING TO INITIALIZE"
+        else:
+            mode = ("LOCALIZATION" if self.localization_only else
+                    "SLAM MODE")
+            text = (f"{mode} | KFs: {self.n_kfs}, MPs: "
+                    f"{self.n_live_points}, Matches: {n_match}")
+        d.rectangle([0, im.height - 18, im.width, im.height],
+                    fill=(30, 30, 30))
+        d.text((6, im.height - 15), text, fill=(255, 255, 0))
+        buf = io.BytesIO()
+        im.save(buf, format="PNG")
+        return buf.getvalue()
 
     # ------------------------------------------------------------ tracking
     def _track_common(self, pair, timestamp: float) -> Optional[np.ndarray]:

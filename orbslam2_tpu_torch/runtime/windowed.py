@@ -167,22 +167,38 @@ class WindowedSlamEngine(SlamEngine):
         self._prev2_Tcw: Optional[np.ndarray] = None
         self._window_refs: List[int] = []    # refs of unretired windows
         self._held_slots: Set[int] = set()   # culled, not yet reusable
+        self._last_out: Optional[SlamWindowOut] = None   # the overlay's
 
     # --------------------------------------------------------- frame entry
     def track_stereo(self, left, right, timestamp: float):
         if self.state != tracking.OK:
             return super().track_stereo(left, right, timestamp)
+        self._last_image = left
         return self._push(self._upload_pair(left, right), timestamp)
 
     def track_rgbd(self, gray, depth, timestamp: float):
         if self.state != tracking.OK:
             return super().track_rgbd(gray, depth, timestamp)
+        self._last_image = gray
         return self._push(self._upload_rgbd(gray, depth), timestamp)
 
     def track_monocular(self, gray, timestamp: float):
         if self.state != tracking.OK:
             return super().track_monocular(gray, timestamp)
+        self._last_image = gray
         return self._push(self._upload_mono(gray), timestamp)
+
+    def _overlay_data(self):
+        """The windowed engine keeps its frames' data on the device: the
+        overlay fetches the last retired window's final row on demand
+        (viewer poll rate, not frame rate)."""
+        out = self._last_out
+        if out is None:
+            return super()._overlay_data()
+        j = self.window - 1
+        matched = (out.last_assoc >= 0) & out.last_inlier
+        return (out.fds.xy_raw[j].cpu().numpy(),
+                out.fds.valid[j].cpu().numpy(), matched.cpu().numpy())
 
     def _push(self, pair, timestamp: float):
         self._buf.append((pair, timestamp))
@@ -238,6 +254,7 @@ class WindowedSlamEngine(SlamEngine):
         self._prev2_Tcw = None
         self._buf = []
         self._last_retired = None
+        self._last_out = None
         self._window_refs = []
         self._held_slots = set()
         super()._auto_reset()
@@ -368,6 +385,7 @@ class WindowedSlamEngine(SlamEngine):
         self.last_assoc = out.last_assoc
         self.last_inlier = out.last_inlier
         self._pending_counters = out.counters
+        self._last_out = out            # frame_overlay source
         self._last_retired = self.last_Tcw
 
     # ------------------------------------------------- mapper bookkeeping

@@ -131,3 +131,22 @@ def test_native_copy_identical():
     flag = tnative.InterruptFlag()
     flag.set(1)
     assert flag.consume() == 1 and flag.get() == 0
+
+
+def test_markers_copy_identical():
+    """Same source below the copy's header."""
+    from orbslam2_tpu.utils import markers as jmarkers
+    from orbslam2_tpu_torch.utils import markers as tmarkers
+    assert open(tmarkers.__file__).read().endswith(
+        open(jmarkers.__file__).read())
+
+
+def test_sensors_copy_identical():
+    """Same source below the copy's header, but for the recorded-sequence
+    backend's loader, which is the port's."""
+    from orbslam2_tpu.utils import sensors as jsensors
+    from orbslam2_tpu_torch.utils import sensors as tsensors
+    src_j = open(jsensors.__file__).read().replace(
+        "from orbslam2_tpu.utils.datasets import",
+        "from orbslam2_tpu_torch.utils.datasets import")
+    assert open(tsensors.__file__).read().endswith(src_j)

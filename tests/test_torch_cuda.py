@@ -635,3 +635,70 @@ def test_launch_counts_from_two_threads_on_two_streams():
     assert results == {"tracking": True, "mapping": True}
     assert tk.hamming_top2.launches == 2 * n
     assert tk.hamming_top2.launches_by_site == {"tracking": n, "mapping": n}
+
+
+def test_kitti_driver_launches_the_kernel_on_the_card(tmp_path):
+    """tools.replay.run_kitti_stereo with no device, over 12 corridor
+    frames written as a KITTI layout with a yaw jolt at frame 8: the
+    System is on the card, every frame tracked, and TrackReferenceKeyFrame
+    launched hamming_top2."""
+    from orbslam2_tpu_torch.config import CameraConfig
+    from orbslam2_tpu_torch.tools import replay
+    from orbslam2_tpu_torch.utils import png, synthetic
+
+    cam = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0,
+                       width=640, height=480, fps=10.0, th_depth=60.0)
+    rng = np.random.default_rng(0)
+    world = synthetic.make_world(rng)
+    poses = synthetic.straight_trajectory(12, step=0.25)
+    c, s = np.cos(0.12), np.sin(0.12)
+    poses[8] = np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0],
+                         [0, 0, 0, 1]], poses[0].dtype) @ poses[8]
+    for sub in ("image_0", "image_1"):
+        (tmp_path / sub).mkdir()
+    for i, T in enumerate(poses):
+        for sub, img in zip(("image_0", "image_1"),
+                            synthetic.render_world_stereo(world, cam, T, rng,
+                                                          1.0)):
+            png.write_png(str(tmp_path / sub / f"{i:06d}.png"),
+                          np.clip(img, 0, 255).astype(np.uint8))
+    (tmp_path / "times.txt").write_text("".join(f"{0.1 * i:e}\n"
+                                                for i in range(12)))
+    (tmp_path / "s.yaml").write_text(
+        "%YAML:1.0\nCamera.fx: 450.0\nCamera.fy: 450.0\nCamera.cx: 320.0\n"
+        "Camera.cy: 240.0\nCamera.bf: 150.0\nCamera.fps: 10.0\n"
+        "Camera.width: 640\nCamera.height: 480\nThDepth: 60.0\n"
+        "ORBextractor.nFeatures: 1000\n")
+    tk.reset_launch_counts()
+    rep = replay.run_kitti_stereo(str(tmp_path), str(tmp_path / "s.yaml"),
+                                  str(tmp_path / "t.txt"))
+    assert rep.n_tracked == rep.n_frames == 12
+    assert tk.hamming_top2.launches_by_site.get("track_ref_kf", 0) >= 1
+
+
+def test_detect_plane_on_the_card_matches_the_cpu():
+    """The AR RANSAC on the card against the CPU, on the same hypotheses:
+    the normal equal up to sign, d and the origin within 1e-4."""
+    from orbslam2_tpu_torch.utils import ar
+
+    rng = np.random.default_rng(0)
+    on = np.stack([rng.uniform(-5, 5, 200),
+                   np.full(200, 2.0) + rng.normal(0, 0.005, 200),
+                   rng.uniform(5, 25, 200)], -1)
+    off = np.stack([rng.uniform(-5, 5, 60), rng.uniform(-3, 1.5, 60),
+                    rng.uniform(5, 25, 60)], -1)
+    pts = torch.from_numpy(np.concatenate([on, off]).astype(np.float32))
+    valid = torch.ones(260, dtype=torch.bool)
+    n_obs = torch.full((260,), 8, dtype=torch.int32)
+    idx = ar.draw_hypotheses(valid, 64, torch.Generator().manual_seed(3))
+    f_cpu = ar.detect_plane(pts, valid, n_obs, idx=idx)
+    f_gpu = ar.detect_plane(pts.cuda(), valid.cuda(), n_obs.cuda(),
+                            idx=idx.cuda())
+    assert bool(f_gpu.ok) and bool(f_cpu.ok)
+    sign = float(torch.sign(torch.dot(f_gpu.n.cpu(), f_cpu.n)))
+    assert torch.allclose(sign * f_gpu.n.cpu(), f_cpu.n, atol=1e-4)
+    assert abs(sign * float(f_gpu.d) - float(f_cpu.d)) < 1e-4
+    assert torch.allclose(f_gpu.origin.cpu(), f_cpu.origin, atol=1e-4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    assert bool(ar.detect_plane(pts.cuda(), valid.cuda(), n_obs.cuda(),
+                                gen).ok)

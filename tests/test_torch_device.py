@@ -142,3 +142,78 @@ def test_track_monocular_uploads_to_the_engine_device(entry, monkeypatch):
     (g,), = seen
     assert g.device.type == "meta" and g.dtype == torch.float32
     assert tuple(g.shape) == (240, 320)
+
+
+# the drivers (tools/replay.py, tools/live.py): each builds its System on
+# the card unless given device="cpu"
+def _no_source():
+    return None
+
+
+DRIVERS = {
+    "run_kitti_stereo": lambda r, l, **kw: r.run_kitti_stereo("seq", None,
+                                                              **kw),
+    "run_tum_rgbd": lambda r, l, **kw: r.run_tum_rgbd("seq", None, **kw),
+    "run_tum_mono": lambda r, l, **kw: r.run_tum_mono("seq", None, **kw),
+    "run_euroc_stereo": lambda r, l, **kw: r.run_euroc_stereo("mav", None,
+                                                              **kw),
+    "run_kitti_mono": lambda r, l, **kw: r.run_kitti_mono("seq", None,
+                                                          **kw),
+    "run_euroc_mono": lambda r, l, **kw: r.run_euroc_mono("mav", None,
+                                                          **kw),
+    "run_isl_stereo": lambda r, l, **kw: r.run_isl_stereo("l", "r", "t",
+                                                          None, **kw),
+    "run_ird_realsense": lambda r, l, **kw: r.run_ird_realsense(
+        "seq", None, **kw),
+    "run_synthetic_stereo": lambda r, l, **kw: r.run_synthetic_stereo(
+        2, **kw),
+    "run_mono_live": lambda r, l, **kw: l.run_mono_live(_no_source, None,
+                                                        **kw),
+    "run_ird_live": lambda r, l, **kw: l.run_ird_live(_no_source, None,
+                                                      **kw),
+    "run_multicam": lambda r, l, **kw: l.run_multicam(_no_source,
+                                                      _no_source, None,
+                                                      **kw),
+    "run_uwb": lambda r, l, **kw: l.run_uwb(_no_source, None, {}, **kw),
+}
+
+
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
+def test_driver_without_device_raises_without_cuda(driver, monkeypatch,
+                                                   tmp_path):
+    from orbslam2_tpu_torch.tools import live, replay
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        DRIVERS[driver](replay, live)
+
+
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
+def test_driver_passes_device_to_system(driver, monkeypatch, tmp_path):
+    """No device: None reaches System (which takes the card); "cpu"
+    reaches it as given."""
+    from orbslam2_tpu_torch.tools import live, replay
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def system(*args, device=None, **kwargs):
+        seen.append(device)
+        raise Stop
+
+    monkeypatch.setattr(replay, "System", system)
+    monkeypatch.setattr(live, "System", system)
+    monkeypatch.chdir(tmp_path)
+    for kw in ({}, {"device": "cpu"}):
+        with pytest.raises(Stop):
+            DRIVERS[driver](replay, live, **kw)
+    assert seen == [None, "cpu"]
+
+
+def test_ar_demo_draws_on_the_engine_device():
+    from orbslam2_tpu_torch.utils.ar import ArDemo
+    eng = SlamEngine(CFG, enable_loop_closing=False, device="cpu")
+    demo = ArDemo(eng)
+    assert demo._gen.device == eng.device
+    assert demo.insert_cube() is False       # an empty map has no plane

@@ -17,7 +17,9 @@ relocalizes, stereo frames through ``AsyncSlamEngine`` (its worker maps
 them; ``runtime/pipeline.py``) and a pair through ``StereoRectifier``'s
 host and device paths (``ops/rectify.py``), and check that nothing of
 jax or ``orbslam2_tpu`` was loaded.
-Also: ``chip_smoke.py`` refuses to run without a card, and fails on its
+Also, with PIL and cv2 unimportable too, the dataset drivers and the
+stream node (``test_drivers_run_without_jax_pil_or_cv2``).
+And: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
 
@@ -189,6 +191,74 @@ print("NOJAX_OK")
 """
 
 
+_DRIVERS_CHILD = r"""
+import sys
+for name in ("jax", "PIL", "cv2"):
+    sys.modules[name] = None          # any import of them now raises
+import os, tempfile, time
+import numpy as np, torch
+torch.set_num_threads(2)
+import orbslam2_tpu_torch.runtime.ros_node  # noqa: F401
+import orbslam2_tpu_torch.tools.live  # noqa: F401
+import orbslam2_tpu_torch.utils.ar  # noqa: F401
+import orbslam2_tpu_torch.utils.live_viewer  # noqa: F401
+import orbslam2_tpu_torch.utils.sensors  # noqa: F401
+import orbslam2_tpu_torch.utils.viewer  # noqa: F401
+from orbslam2_tpu_torch.config import CameraConfig, STEREO
+from orbslam2_tpu_torch.runtime.stream_node import StreamNode
+from orbslam2_tpu_torch.runtime.system import System
+from orbslam2_tpu_torch.tools import replay
+from orbslam2_tpu_torch.utils import datasets, png, synthetic
+from orbslam2_tpu_torch.utils.markers import ArucoCodeScanner, QrCodeTracker
+assert not QrCodeTracker().available and not ArucoCodeScanner().available
+cam = CameraConfig(fx=225.0, fy=225.0, cx=160.0, cy=120.0, bf=75.0,
+                   width=320, height=240, fps=10.0, th_depth=60.0)
+rng = np.random.default_rng(0)
+world = synthetic.make_world(rng)
+poses = synthetic.straight_trajectory(6, step=0.3)
+d = tempfile.mkdtemp()
+for sub in ("image_0", "image_1"):
+    os.makedirs(os.path.join(d, sub))
+for i, T in enumerate(poses):
+    for sub, img in zip(("image_0", "image_1"),
+                        synthetic.render_world_stereo(world, cam, T, rng,
+                                                      1.0)):
+        png.write_png(os.path.join(d, sub, f"{i:06d}.png"),
+                      np.clip(img, 0, 255).astype(np.uint8))
+with open(os.path.join(d, "times.txt"), "w") as f:
+    f.write("".join(f"{0.1 * i:e}\n" for i in range(6)))
+settings = os.path.join(d, "s.yaml")
+with open(settings, "w") as f:
+    f.write("%YAML:1.0\nCamera.fx: 225.0\nCamera.fy: 225.0\n"
+            "Camera.cx: 160.0\nCamera.cy: 120.0\nCamera.bf: 75.0\n"
+            "Camera.width: 320\nCamera.height: 240\nThDepth: 60.0\n"
+            "ORBextractor.nFeatures: 200\n")
+rep = replay.run_kitti_stereo(d, settings, os.path.join(d, "t.txt"),
+                              device="cpu")
+assert rep.n_frames == rep.n_tracked == 6, rep
+assert len(open(os.path.join(d, "t.txt")).read().splitlines()) == 6
+poses_out = []
+node = StreamNode(System(None, settings, STEREO, device="cpu"),
+                  on_pose=lambda p, t: poses_out.append(p))
+node.start()
+for i, (left, right, t) in enumerate(datasets.iter_kitti_stereo(d)):
+    node.on_image_stereo(left, right, t)
+    deadline = time.time() + 120      # each frame after the last's pose
+    while len(poses_out) <= i and time.time() < deadline \
+            and node.error is None:
+        time.sleep(0.01)
+node.stop()
+assert node.processed == 6 and node.dropped == 0
+assert all(p is not None for p in poses_out)
+bad = sorted(m for m in sys.modules
+             if m == "orbslam2_tpu" or m.startswith("orbslam2_tpu.")
+             or (m.split(".")[0] in ("jax", "PIL", "cv2")
+                 and sys.modules[m] is not None))
+assert not bad, bad
+print("DRIVERS_NOJAX_OK")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
@@ -201,6 +271,18 @@ def test_port_runs_without_jax():
                          timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NOJAX_OK" in out.stdout
+
+
+def test_drivers_run_without_jax_pil_or_cv2():
+    """With jax, PIL and cv2 unimportable: every new module of the
+    drivers imports, a KITTI layout written with ``utils/png.write_png`` is
+    replayed by ``tools.replay.run_kitti_stereo`` on the CPU, and a
+    ``StreamNode`` tracks the frames read back by the loader."""
+    out = subprocess.run([sys.executable, "-c", _DRIVERS_CHILD], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "DRIVERS_NOJAX_OK" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
