@@ -157,6 +157,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  scene if it has < 50 points seen > 5 times), detect_plane
                  with fixed hypotheses on the card against a CPU copy
                  (normal up to sign, d, origin within 1e-4), its ms;
+ 22. vocabulary — default_vocabulary(force_rebuild=True, path=<tmp>), no
+                 device given: the default harvest on the card (views,
+                 descriptors, ms a view to render and to extract, the
+                 real-raster bank's size: empty where matplotlib is
+                 missing; ≥ 500 descriptors a view on average), then the
+                 k=10, levels=4 tree built on the card, every k-majority
+                 assignment a hamming_top2 launch (site vocab_build; no
+                 launch elsewhere), written as the JAX package's npz
+                 (uint32 centroids, float32 idf) and loaded back equal;
+                 the first 2 views extracted again on the CPU (the share
+                 of descriptors bit-equal); the same build on the CPU
+                 (the plain version) on the same descriptors: every level
+                 and idf bit-equal, seconds of each build; a corridor
+                 view's BoW similarity to itself re-rendered with fresh
+                 noise beats its similarity to another world's view by
+                 more than 0.1 (tests/test_place_recognition.py:47); last
+                 of the run, hamming_top2 at the root group's shape (every
+                 descriptor against 10 centroids): device µs per launch
+                 against its bound, wrapper-inclusive and plain ms;
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
@@ -165,9 +184,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  The wrapper's host µs is also taken at the end of phase 3
                  and after phase 20's profiled window (the kernels line's
                  ``host_us_by_point``).
-No profiler session of phase 20 or 9 precedes a timed measurement: phases
-run in the order 1-8, 10-19, 20's corridor, orbit and rectify, 21, 9's
-timed part, 20's profiled window, 9's device times.  (Phases 12, 16 and 18
+No profiler session of phase 20, 9 or 22 precedes a timed measurement:
+phases run in the order 1-8, 10-19, 20's corridor, orbit and rectify, 21,
+22, 9's timed part, 20's profiled window, 9's device times, 22's root-shape
+kernel times.  (Phases 12, 16 and 18
 profile windows of their own, before phase 19.)
 Every time printed carries the card's name and power limit.  The line
 before the last is the kernels' JSON record (launches per path); the last
@@ -271,6 +291,13 @@ def _cuda_ms(fn, reps=200, warmup=10):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _max_sm_clock_mhz():
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
 
 
 def hamming_top2_bound(av, bv, sm_clock_mhz):
@@ -397,10 +424,7 @@ def phase_kernel_device(smi, main_inputs, k, early):
                       for name, (h, ms) in points.items())
           + f" ({smi})", flush=True)
     dev_us, recorded = device_us(lambda: hamming_top2(a, av, b, bv), n=200)
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.split()[0])
+    clock = _max_sm_clock_mhz()
     bound_ms, bound_by, ops, nbytes = hamming_top2_bound(av, bv, clock)
     share = bound_ms / (dev_us / 1e3)
     print(f"[times] hamming_top2 1024x1024: device {dev_us:.3f} us per "
@@ -2763,6 +2787,237 @@ def phase_drivers(smi, corridor, rgbd_frames, slice_ms):
     return sites, results
 
 
+# phase 22: the harvest's bar (descriptors a view on average), the views
+# also harvested on the CPU, and the BoW margin of
+# tests/test_place_recognition.py:47
+VOCAB_MIN_DESC_PER_VIEW = 500
+VOCAB_CPU_VIEWS = 2
+BOW_MARGIN = 0.1
+
+
+def _share_equal(a, b):
+    """Share of the rows of two descriptor sets (int32 [n, 8]) that are
+    bit-equal, matched as multisets, over the larger set."""
+    from collections import Counter
+
+    ca = Counter(map(bytes, a.cpu().numpy()))
+    cb = Counter(map(bytes, b.cpu().numpy()))
+    return sum((ca & cb).values()) / max(len(a), len(b), 1)
+
+
+def _voc_equal(a, b):
+    return ((a.k, a.levels) == (b.k, b.levels)
+            and all(torch.equal(x.cpu(), y.cpu())
+                    for x, y in zip(a.centroids, b.centroids))
+            and torch.equal(a.idf.cpu(), b.idf.cpu()))
+
+
+def _bow_margin(smi, voc):
+    """Phase 22 (d): a bench-camera view of one corridor world against the
+    same view re-rendered with fresh noise and against the same pose in
+    another world, each extracted on the card: BoW similarities."""
+    from orbslam2_tpu_torch.ops import bow, extractor
+    from orbslam2_tpu_torch.ops import image as image_ops
+    from orbslam2_tpu_torch.utils import synthetic
+
+    cfg = bench_config()
+    world_a = synthetic.make_world(np.random.default_rng(0))
+    world_b = synthetic.make_world(np.random.default_rng(1))
+    T = synthetic.look_ahead_pose(np.array([0.3, 0.0, 2.0]), yaw=0.1)
+    rng = np.random.default_rng(22)
+
+    def vector(world):
+        img = synthetic.render_world(world, cfg.camera, T, rng, 1.0)
+        gray = torch.from_numpy(img.astype(np.float32)).cuda()
+        f = extractor.extract(image_ops.build_pyramid(
+            gray, cfg.orb.n_levels, cfg.orb.scale_factor), cfg.orb)
+        return bow.bow_vector(voc, f.desc, f.valid)
+
+    va = vector(world_a)
+    same = float(bow.score(va, vector(world_a)))
+    other = float(bow.score(va, vector(world_b)))
+    print(f"[vocabulary] BoW similarity of a corridor view to itself "
+          f"re-rendered with fresh noise {same:.4f}, to the same pose in "
+          f"another world {other:.4f} (bar: same > other + {BOW_MARGIN}) "
+          f"({smi})", flush=True)
+    if not same > other + BOW_MARGIN:
+        raise AssertionError(f"vocabulary: BoW similarity {same} to the "
+                             f"same place, {other} to another world")
+    return same, other
+
+
+def phase_vocabulary(smi):
+    """Phase 22: vocabulary building on the card through the user's entry
+    point, default_vocabulary(force_rebuild=True, path=...) with no
+    device: the default harvest, then the k=10, levels=4 tree, written and
+    loaded back.  The harvest's views, extractions and build are timed on
+    the way through (the module's functions wrapped for the call).  Then
+    the first views extracted again on the CPU, the same build on the CPU
+    (hamming_top2's plain version) against the card's, and the BoW margin.
+    Returns (the vocab_build launches by site, the numbers, the root
+    group's kernel inputs)."""
+    import os
+    import tempfile
+
+    from orbslam2_tpu_torch.models import vocabulary as voc
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+
+    t_phase = time.perf_counter()
+    bank = voc._real_textures()
+    ext_s, views, timed = [], [], {}
+    inner = (voc.view_descriptors, voc.harvest_training_descriptors,
+             voc.build_vocabulary)
+
+    def view_descriptors(img, device):
+        t0 = time.perf_counter()
+        d = inner[0](img, device)
+        torch.cuda.synchronize()
+        ext_s.append(time.perf_counter() - t0)
+        if len(views) < VOCAB_CPU_VIEWS:
+            views.append((img, d))
+        return d
+
+    def harvest(**kw):
+        t0 = time.perf_counter()
+        timed["desc"] = inner[1](**kw)
+        torch.cuda.synchronize()
+        timed["harvest_s"] = time.perf_counter() - t0
+        return timed["desc"]
+
+    def build(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner[2](*args, **kw)
+        torch.cuda.synchronize()
+        timed["build_s"] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "vocab_k10_l4.npz")
+        (voc.view_descriptors, voc.harvest_training_descriptors,
+         voc.build_vocabulary) = view_descriptors, harvest, build
+        try:
+            ht2.reset_launch_counts()     # the main path's count starts here
+            t0 = time.perf_counter()
+            built = voc.default_vocabulary(force_rebuild=True, path=path)
+            torch.cuda.synchronize()
+            user_s = time.perf_counter() - t0
+            sites = dict(ht2.hamming_top2.launches_by_site)
+        finally:
+            (voc.view_descriptors, voc.harvest_training_descriptors,
+             voc.build_vocabulary) = inner
+        z = np.load(path)
+        layout = ([str(z[f"cent{d}"].dtype) for d in range(4)]
+                  + [str(z["idf"].dtype)])
+        t0 = time.perf_counter()
+        loaded = voc.default_vocabulary(path=path, device="cuda")
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        mb = os.path.getsize(path) / 2 ** 20
+    desc = timed["desc"]
+    n_views, n_desc = len(ext_s), desc.shape[0]
+    render_ms = 1e3 * (timed["harvest_s"] - sum(ext_s)) / n_views
+    extract_ms = 1e3 * sum(ext_s) / n_views
+    launches = sites.get("vocab_build", 0)
+    print(f"[vocabulary] harvest on the card: {n_views} views, {n_desc} "
+          f"descriptors ({n_desc / n_views:.1f} a view), render "
+          f"{render_ms:.1f} ms and extraction {extract_ms:.2f} ms a view "
+          f"(synchronized), real-raster bank of {len(bank)} "
+          f"(matplotlib {'found' if bank else 'absent'}) ({smi})",
+          flush=True)
+    print(f"[vocabulary] default_vocabulary(force_rebuild=True, path) in "
+          f"{user_s:.2f} s: build k=10, levels=4 on the card "
+          f"{timed['build_s']:.3f} s, hamming_top2 launches {sites}; npz "
+          f"{mb:.3f} MB ({layout}), loaded back on the card in "
+          f"{load_ms:.1f} ms ({smi})", flush=True)
+    if n_desc / n_views < VOCAB_MIN_DESC_PER_VIEW:
+        raise AssertionError(f"vocabulary: {n_desc} descriptors from "
+                             f"{n_views} views (need ≥ "
+                             f"{VOCAB_MIN_DESC_PER_VIEW} a view)")
+    if not built.centroids[0].is_cuda or launches < 7:
+        raise AssertionError(f"vocabulary: the tree was not built on the "
+                             f"card through hamming_top2 ({sites})")
+    if set(sites) != {"vocab_build"}:
+        raise AssertionError(f"vocabulary: launches outside vocab_build: "
+                             f"{sites}")
+    if layout != ["uint32"] * 4 + ["float32"] or not _voc_equal(loaded,
+                                                               built):
+        raise AssertionError(f"vocabulary: the written tree ({layout}) "
+                             f"does not load back equal")
+    from orbslam2_tpu_torch.models.vocabulary import (build_vocabulary,
+                                                      view_descriptors)
+    shares = []
+    for img, d in views:
+        t0 = time.perf_counter()
+        c = view_descriptors(img, "cpu")
+        shares.append((_share_equal(d, c), len(d), len(c),
+                       1e3 * (time.perf_counter() - t0)))
+    print("[vocabulary] the first views extracted again on the CPU: "
+          + "; ".join(f"{100 * s:.2f}% of descriptors bit-equal (card "
+                      f"{n}, CPU {m}; CPU {ms:.0f} ms)"
+                      for s, n, m, ms in shares) + f" ({smi})", flush=True)
+    t0 = time.perf_counter()
+    cpu = build_vocabulary(desc.cpu(), k=10, levels=4, seed=0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    equal = _voc_equal(built, cpu)
+    print(f"[vocabulary] the same build on the CPU (plain version) in "
+          f"{cpu_s:.2f} s against the card's {timed['build_s']:.3f} s: "
+          f"every level and idf {'bit-equal' if equal else 'DIFFER'} "
+          f"({launches} vocab_build launches on the card) ({smi})",
+          flush=True)
+    if not equal:
+        raise AssertionError("vocabulary: the card's tree differs from the "
+                             "CPU's on the same descriptors")
+    same, other = _bow_margin(smi, built)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[vocabulary] phase 22 in {phase_s:.1f} s ({smi})", flush=True)
+    return sites, {
+        "views": n_views, "descriptors": n_desc, "bank": len(bank),
+        "render_ms": render_ms, "extract_ms": extract_ms,
+        "build_s": timed["build_s"], "cpu_build_s": cpu_s,
+        "user_s": user_s, "launches": launches, "bow": (same, other),
+        "cpu_share": [s for s, *_ in shares], "s": phase_s}, (
+        desc.contiguous(), built.centroids[0].contiguous())
+
+
+def phase_vocab_kernel_device(smi, root):
+    """Phase 22, last (after phase 9's profiler session): hamming_top2 at
+    the root group's shape (every harvested descriptor against k=10
+    centroids, all valid): device µs per launch (torch.profiler) against
+    its bound, the wrapper-inclusive and plain ms per call (CUDA
+    events)."""
+    from orbslam2_tpu_torch.kernels.bench_hamming_top2 import device_us
+    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
+                                                     hamming_top2_reference)
+
+    a, b = root
+    av = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+    bv = torch.ones(b.shape[0], dtype=torch.bool, device=a.device)
+    got = hamming_top2(a, av, b, bv)
+    ref = hamming_top2_reference(a, av, b, bv)
+    err = max(int(torch.max(torch.abs(g.long() - r.long())))
+              for g, r in zip(got, ref))
+    if err > MAX_ABS_ERR:
+        raise AssertionError(f"hamming_top2 at the vocabulary root shape: "
+                             f"max |diff| {err}")
+    call_ms = _cuda_ms(lambda: hamming_top2(a, av, b, bv))
+    plain_ms = _cuda_ms(lambda: hamming_top2_reference(a, av, b, bv),
+                        reps=20, warmup=2)
+    dev_us, recorded = device_us(lambda: hamming_top2(a, av, b, bv), n=200)
+    clock = _max_sm_clock_mhz()
+    bound_ms, bound_by, ops, nbytes = hamming_top2_bound(av, bv, clock)
+    print(f"[vocabulary] hamming_top2 at the root group's shape "
+          f"{a.shape[0]}x{b.shape[0]}: bit-exact vs plain; device "
+          f"{dev_us:.3f} us per launch (torch.profiler, mean of {recorded} "
+          f"recorded of 200), wrapper-inclusive {1e3 * call_ms:.3f} us per "
+          f"call (CUDA events), plain {plain_ms:.4f} ms; bound "
+          f"{1e3 * bound_ms:.3f} us by {bound_by} ({ops} __popc, SM clock "
+          f"{clock:.0f} MHz; {nbytes} bytes), "
+          f"{100 * bound_ms / (dev_us / 1e3):.1f}% of the bound ({smi})",
+          flush=True)
+    return {"shape": [a.shape[0], b.shape[0]], "device_ms": dev_us / 1e3,
+            "ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def main():
     smi = phase_device()
     phase_build(smi)
@@ -2803,10 +3058,13 @@ def main():
     driver_sites, drivers = phase_drivers(smi, corridor, rgbd_frames,
                                           slice_ms)
     del rgbd_frames
+    vocab_sites, vocab, vocab_root = phase_vocabulary(smi)
     k = phase_kernel_times(smi, main_inputs)
     asyn["both_ms"] = phase_async_profiled(smi, corridor)
     del corridor
     k = phase_kernel_device(smi, main_inputs, k, early_times)
+    k["vocab_root"] = phase_vocab_kernel_device(smi, vocab_root)
+    del vocab_root
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
                "reloc (phase 8)": reloc_sites,
                "windowed (phase 10)": windowed_sites,
@@ -2819,7 +3077,8 @@ def main():
                "bench mono (phase 18)": bench_mono_sites,
                "System (phase 19)": system_sites,
                "async (phase 20)": async_sites,
-               "drivers (phase 21)": driver_sites}
+               "drivers (phase 21)": driver_sites,
+               "vocabulary (phase 22)": vocab_sites}
     print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
           f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
@@ -2846,7 +3105,10 @@ def main():
                       f"{drivers[n]['decode_ms']:.2f})"
                       for n in ("kitti", "tum", "euroc"))
           + f"; stream node {drivers['stream']['paced_ms']:.1f} ms a frame; "
-          f"detect_plane {drivers['ar']['ms']:.3f} ms ({smi})", flush=True)
+          f"detect_plane {drivers['ar']['ms']:.3f} ms; vocabulary: "
+          f"harvest {vocab['render_ms']:.1f} + {vocab['extract_ms']:.2f} ms "
+          f"a view, build {vocab['build_s']:.3f} s on the card / "
+          f"{vocab['cpu_build_s']:.2f} s on the CPU ({smi})", flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

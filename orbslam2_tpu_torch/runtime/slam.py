@@ -70,7 +70,8 @@ class SlamEngine:
         if enable_loop_closing:
             voc = vocabulary if vocabulary is not None else \
                 voc_mod.default_vocabulary(k=cfg.capacity.vocab_k,
-                                           levels=cfg.capacity.vocab_levels)
+                                           levels=cfg.capacity.vocab_levels,
+                                           device=self.device)
             self.loop_closer = LoopCloser(cfg, voc, self.device)
 
         self.ms = M.empty_map(cfg, device=self.device)

@@ -11,9 +11,11 @@ RGB-D association logic of ``Config/RGB-D-associate.py``
 on the host, as numpy.
 
 PNG frames are read by ``utils/png.py`` (zlib and numpy; the GPU host has
-neither PIL nor cv2), with PIL's conversion of RGB to gray.  Any other
-format (the ISL layout's JPEG) goes through PIL, imported when called, as
-in the JAX package.
+neither PIL nor cv2), with PIL's conversion of RGB to gray.  A PNG in a
+format that reader refuses (``png.UnsupportedPNG``: palette, gray+alpha,
+16-bit RGB, gray under 8 bits, interlaced) and any other file (the ISL
+layout's JPEG) go through PIL, imported when called, exactly as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -30,14 +32,25 @@ def _pil_image(path: str):
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError(f"{path} is not a PNG file: reading it needs PIL "
-                          f"(the Pillow package)") from e
+        raise ImportError(f"{path} is not a PNG file the port reads itself: "
+                          f"reading it needs PIL (the Pillow package)") from e
     return Image.open(path)
 
 
+def _read_png(path: str):
+    """The decoded array, or None where the port's reader refuses the
+    format (the caller then reads the file through PIL)."""
+    if not png.is_png(path):
+        return None
+    try:
+        return png.read_png(path)
+    except png.UnsupportedPNG:
+        return None
+
+
 def _imread_gray(path: str) -> np.ndarray:
-    if png.is_png(path):
-        arr = png.read_png(path)
+    arr = _read_png(path)
+    if arr is not None:
         if arr.ndim == 3:               # RGB / RGBA: PIL's convert("L")
             arr = png.rgb_to_l(arr)
         return arr.astype(np.float32)
@@ -49,8 +62,9 @@ def _imread_gray(path: str) -> np.ndarray:
 
 
 def _imread_depth(path: str, factor: float) -> np.ndarray:
-    arr = png.read_png(path) if png.is_png(path) else \
-        np.asarray(_pil_image(path))
+    arr = _read_png(path)
+    if arr is None:
+        arr = np.asarray(_pil_image(path))
     return arr.astype(np.float32) / factor
 
 

@@ -5,7 +5,10 @@ frames as non-interlaced PNG: 8-bit gray, 8-bit RGB or RGBA, and 16-bit
 gray depth (big-endian in the file).  ``read_png`` decodes those, with all
 five row filters; ``write_png`` writes them with filter 0 (None) on every
 row.  RGB and RGBA convert to gray as PIL's ``convert("L")`` does, bit for
-bit (``rgb_to_l``).
+bit (``rgb_to_l``).  A well-formed PNG of any other format (palette,
+gray+alpha, 16-bit colour, gray under 8 bits, interlaced) raises
+``UnsupportedPNG``, a ``ValueError`` that callers catch to read the file
+another way; a corrupt stream raises a plain ``ValueError``.
 
 Average and Paeth rows depend on the pixel to their left, so a row cannot
 be undone in one vector step.  Pixel (y, p) depends on (y, p-1), (y-1, p)
@@ -26,6 +29,10 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type → channels (0 gray, 2 RGB, 6 RGBA)
 _CHANNELS = {0: 1, 2: 3, 6: 4}
+
+
+class UnsupportedPNG(ValueError):
+    """A valid PNG in a format ``decode_png`` does not read."""
 
 
 def is_png(path: str) -> bool:
@@ -61,9 +68,12 @@ def decode_png(data: bytes) -> np.ndarray:
     if hdr is None or not idat:
         raise ValueError("PNG stream without IHDR or IDAT")
     w, h, depth, color, comp, filt, interlace = hdr
+    if comp or filt:
+        raise ValueError(f"PNG compression method {comp}, filter method "
+                         f"{filt} (only 0 exists)")
     if (color not in _CHANNELS or depth not in (8, 16)
-            or (depth == 16 and color != 0) or comp or filt or interlace):
-        raise ValueError(
+            or (depth == 16 and color != 0) or interlace):
+        raise UnsupportedPNG(
             f"unsupported PNG (colour type {color}, bit depth {depth}, "
             f"interlace {interlace}): read are non-interlaced 8-bit gray, "
             f"RGB and RGBA, and 16-bit gray")

@@ -150,3 +150,37 @@ def test_sensors_copy_identical():
         "from orbslam2_tpu.utils.datasets import",
         "from orbslam2_tpu_torch.utils.datasets import")
     assert open(tsensors.__file__).read().endswith(src_j)
+
+
+@pytest.mark.parametrize("name", ["_real_textures", "_alt_texture",
+                                  "photometric_augment"])
+def test_vocabulary_corpus_copies_identical(name):
+    """The harvest's numpy functions in the port's models/vocabulary.py:
+    the same source as the JAX package's, and the same arrays (the
+    real-raster bank where matplotlib imports; every texture family; the
+    augmentation), with the generator left in the same state."""
+    import inspect
+
+    from orbslam2_tpu.models import vocabulary as jvoc
+    from orbslam2_tpu_torch.models import vocabulary as tvoc
+    fj, ft = getattr(jvoc, name), getattr(tvoc, name)
+    assert inspect.getsource(ft) == inspect.getsource(fj)
+    if name == "_real_textures":
+        pytest.importorskip("matplotlib")
+        got, want = ft(), fj()
+        assert len(got) == len(want) == 3
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        return
+    rj, rt = np.random.default_rng(8), np.random.default_rng(8)
+    bank = [np.random.default_rng(9).uniform(0, 255, (90, 70)).astype(
+        np.float32)]
+    img = np.random.default_rng(10).uniform(-20, 280, (48, 64))
+    for _ in range(10):
+        if name == "_alt_texture":
+            a, b = ft(rt, bank, 96), fj(rj, bank, 96)
+        else:
+            a, b = ft(img, rt), fj(img, rj)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert rt.bit_generator.state == rj.bit_generator.state

@@ -702,3 +702,34 @@ def test_detect_plane_on_the_card_matches_the_cpu():
     gen = torch.Generator(device="cuda").manual_seed(5)
     assert bool(ar.detect_plane(pts.cuda(), valid.cuda(), n_obs.cuda(),
                                 gen).ok)
+
+
+def test_vocabulary_build_on_the_card_matches_the_cpu(monkeypatch):
+    """build_vocabulary on the card (every assignment a kernel launch,
+    site vocab_build) against the CPU build (the plain version), bit for
+    bit: centroids of every level and idf.  Clustered rows (40 prototypes,
+    repeated) leave clusters empty, so the re-seed's extra assignments run
+    on the card too."""
+    from orbslam2_tpu_torch.models import vocabulary as voc
+
+    rng = np.random.default_rng(5)
+    protos = rng.integers(0, 2 ** 32, (40, 8), dtype=np.uint32)
+    desc = np.concatenate([protos[rng.integers(0, 40, 4000)],
+                           rng.integers(0, 2 ** 32, (2000, 8),
+                                        dtype=np.uint32)])
+    words = torch.from_numpy(desc.view(np.int32))
+    nodes = []
+    kmajority = voc._kmajority
+    monkeypatch.setattr(voc, "_kmajority", lambda bits, k, rng: (
+        nodes.append(bits.shape[0]) or kmajority(bits, k, rng)))
+    tk.reset_launch_counts()
+    card = voc.build_vocabulary(words, k=5, levels=3, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    launched = dict(tk.hamming_top2.launches_by_site)
+    cpu = voc.build_vocabulary(words, k=5, levels=3, seed=1, device="cpu")
+    for a, b in zip(card.centroids, cpu.centroids):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    assert torch.equal(card.idf.cpu(), cpu.idf)
+    # 7 assignments a node with rows, and more where a cluster fell empty
+    assert set(launched) == {"vocab_build"}
+    assert launched["vocab_build"] > 7 * sum(m > 0 for m in nodes[:31])

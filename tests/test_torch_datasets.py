@@ -186,6 +186,71 @@ def test_jpeg_without_pil_names_the_package(tmp_path, monkeypatch):
         tds._imread_gray(path)
 
 
+def _unsupported_png(case, path):
+    """A PNG in a format the port's reader refuses, written by PIL (cv2
+    for 16-bit RGB: PIL writes none)."""
+    gray = _image("gray8")
+    if case == "palette8":
+        Image.fromarray(_image("rgb8")).convert("P").save(path)
+    elif case == "palette4":
+        Image.fromarray(gray // 16 * 16).convert("P").save(path, bits=4)
+    elif case == "gray_alpha":
+        Image.fromarray(np.stack([gray, 255 - gray], -1), "LA").save(path)
+    elif case == "bilevel":
+        Image.fromarray(gray).convert("1").save(path)
+    else:
+        cv2.imwrite(str(path), _image("rgb8").astype(np.uint16) * 257
+                    + np.arange(3, dtype=np.uint16))
+
+
+UNSUPPORTED = ["palette8", "palette4", "gray_alpha", "bilevel", "rgb16"]
+
+
+@pytest.mark.parametrize("case", UNSUPPORTED)
+def test_loaders_read_unsupported_pngs_as_jax_does(case, tmp_path):
+    """A PNG the port's reader refuses is read through PIL, as the JAX
+    package reads every frame: gray and depth arrays equal to JAX's."""
+    path = str(tmp_path / "x.png")
+    _unsupported_png(case, path)
+    with pytest.raises(png.UnsupportedPNG):
+        png.read_png(path)
+    for got, want in [(tds._imread_gray(path), jds._imread_gray(path)),
+                      (tds._imread_depth(path, 5000.0),
+                       jds._imread_depth(path, 5000.0))]:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["gray_alpha", "palette8"])
+def test_corrupt_unsupported_png_raises_without_pil(case, tmp_path,
+                                                    monkeypatch):
+    """A bad CRC is corruption, not a format to hand to PIL: the loaders
+    raise the reader's plain ValueError even where PIL would read on."""
+    path = tmp_path / "x.png"
+    _unsupported_png(case, path)
+    data = bytearray(path.read_bytes())
+    data[-20] ^= 1                        # inside the last IDAT's body
+    path.write_bytes(bytes(data))
+    opened = []
+    monkeypatch.setattr(tds, "_pil_image",
+                        lambda p: opened.append(p) or Image.open(p))
+    for read in (tds._imread_gray, lambda p: tds._imread_depth(p, 1.0)):
+        with pytest.raises(ValueError, match="CRC") as err:
+            read(str(path))
+        assert not isinstance(err.value, png.UnsupportedPNG)
+    assert opened == []
+
+
+def test_unsupported_png_without_pil_names_the_package(tmp_path,
+                                                       monkeypatch):
+    path = str(tmp_path / "x.png")
+    _unsupported_png("gray_alpha", path)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for read in (tds._imread_gray, lambda p: tds._imread_depth(p, 1.0)):
+        with pytest.raises(ImportError, match="Pillow"):
+            read(path)
+
+
 # ------------------------------------------------------------- the loaders
 def _assert_frames_equal(got, want):
     assert len(got) == len(want) > 0

@@ -8,7 +8,9 @@ with no ``device`` take the card, and raise where torch has no CUDA
 device (forced here with ``monkeypatch``, so the tests mean the same on a
 host with a card); an explicit ``device="cpu"`` builds them on the CPU.
 ``track_rgbd`` and ``track_monocular`` upload their frame to the engine's
-device."""
+device.  Vocabulary building (``harvest_training_descriptors``,
+``build_vocabulary``, ``default_vocabulary`` of a missing tree) runs on
+the card by default too."""
 
 import pytest
 import torch
@@ -100,6 +102,18 @@ def test_explicit_cpu_builds(entry, monkeypatch):
         assert obj._stream is None          # a worker stream on the card only
     if entry == "StereoRectifier":
         assert all(m.device.type == "cpu" for m in obj._dev_maps)
+
+
+@pytest.mark.parametrize("entry", ["harvest_training_descriptors",
+                                   "build_vocabulary", "default_vocabulary"])
+def test_vocabulary_building_without_device_raises_without_cuda(
+        entry, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(voc_mod, "DATA_DIR", str(tmp_path))   # no tree
+    args = (np.zeros((40, 8), np.uint32),) if entry == "build_vocabulary" \
+        else ()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(voc_mod, entry)(*args)
 
 
 def test_default_is_the_card_when_there_is_one(monkeypatch):

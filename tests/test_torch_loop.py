@@ -175,10 +175,15 @@ def test_vocabulary_loader_matches_jax():
     np.testing.assert_array_equal(A(tv.idf), np.asarray(jv.idf))
 
 
-def test_vocabulary_loader_never_rebuilds(tmp_path, monkeypatch):
-    monkeypatch.setattr(tvoc, "DATA_DIR", str(tmp_path))
-    with pytest.raises(FileNotFoundError):
-        tvoc.default_vocabulary()
+def test_vocabulary_loader_never_rebuilds(monkeypatch):
+    """A shipped tree is loaded, never rebuilt, and rebuilding it in place
+    (force_rebuild without a path) raises.  A missing tree is built:
+    tests/test_torch_vocabulary.py."""
+    monkeypatch.setattr(tvoc, "harvest_training_descriptors", None)
+    monkeypatch.setattr(tvoc, "build_vocabulary", None)
+    assert tvoc.default_vocabulary().n_words == 10 ** 4
+    with pytest.raises(ValueError, match="vocab_k10_l4.npz"):
+        tvoc.default_vocabulary(force_rebuild=True)
 
 
 def test_bow_words_and_vectors_match_jax(built):

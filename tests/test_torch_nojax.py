@@ -19,6 +19,9 @@ host and device paths (``ops/rectify.py``), and check that nothing of
 jax or ``orbslam2_tpu`` was loaded.
 Also, with PIL and cv2 unimportable too, the dataset drivers and the
 stream node (``test_drivers_run_without_jax_pil_or_cv2``).
+Also, with jax unimportable, a small vocabulary harvest and build, and
+``default_vocabulary`` building a missing tree
+(``test_vocabulary_builds_without_jax``).
 And: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -259,6 +262,40 @@ print("DRIVERS_NOJAX_OK")
 """
 
 
+_VOCAB_CHILD = r"""
+import sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import os, tempfile
+import numpy as np, torch
+torch.set_num_threads(2)
+from orbslam2_tpu_torch.models import vocabulary as voc
+bank = voc._real_textures()[:1]       # one raster where matplotlib imports
+voc._real_textures = lambda: list(bank)
+desc = voc.harvest_training_descriptors(n_worlds=1, views_per_world=1,
+                                        device="cpu")
+assert desc.dtype == torch.int32 and desc.shape[1] == 8, desc.shape
+assert desc.shape[0] >= 250 * (1 + 6 * len(bank)), desc.shape
+v = voc.build_vocabulary(desc, k=5, levels=2, device="cpu")
+assert [tuple(c.shape) for c in v.centroids] == [(5, 8), (25, 8)]
+assert bool(torch.isfinite(v.idf).all()) and v.idf.shape == (25,)
+voc.DATA_DIR = tempfile.mkdtemp()
+voc._real_textures = lambda: []
+h = voc.harvest_training_descriptors
+voc.harvest_training_descriptors = \
+    lambda device: h(n_worlds=1, views_per_world=1, device=device)
+built = voc.default_vocabulary(k=3, levels=2, device="cpu")
+assert os.path.exists(os.path.join(voc.DATA_DIR, "vocab_k3_l2.npz"))
+back = voc.default_vocabulary(k=3, levels=2)
+assert all(torch.equal(a, b) for a, b in zip(back.centroids,
+                                              built.centroids))
+bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
+             or m.startswith("orbslam2_tpu.")
+             or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
+assert not bad, bad
+print("VOCAB_NOJAX_OK")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
@@ -283,6 +320,18 @@ def test_drivers_run_without_jax_pil_or_cv2():
                          timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "DRIVERS_NOJAX_OK" in out.stdout
+
+
+def test_vocabulary_builds_without_jax():
+    """With jax unimportable: a harvest (one real raster where matplotlib
+    imports, one world seen once) and a k=5, levels=2 build on
+    the CPU, then ``default_vocabulary`` builds, writes and reloads a
+    missing tree."""
+    out = subprocess.run([sys.executable, "-c", _VOCAB_CHILD], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "VOCAB_NOJAX_OK" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
