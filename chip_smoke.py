@@ -176,6 +176,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  of the run, hamming_top2 at the root group's shape (every
                  descriptor against 10 centroids): device µs per launch
                  against its bound, wrapper-inclusive and plain ms;
+ 23. mesh      — parallel/* with 4 shards on cuda:0 (JAX's virtual
+                 devices of one host): phase 16's perturbed capacity map,
+                 one robust CG chunk through distributed_bundle_adjust
+                 against phase 16's unsharded CG chunk within phase 16's
+                 bars, the 4 shards' poses bit-equal, ms (CUDA events) and
+                 peak memory; the same chunk on the map with its point
+                 slots shuffled, so that every shard owns live points,
+                 within the same bars and bit-equal across shards; a
+                 GbaManager with the mesh launched, waited and merged
+                 (stats["distributed"] == 1; one active shard, the map as
+                 it lies) within the same bars of the unsharded manager's
+                 merge; phase 19's saved
+                 map: every live keyframe through detect_step of a
+                 LoopCloser with the mesh and of one without (one card:
+                 no mesh), candidates and covisibility rows equal, BoW
+                 vectors and scores within 1e-6; System.load_map into a
+                 System whose loop closer has the mesh leaves the DB
+                 sharded and relocalizes a re-render of frame 8 within
+                 0.1 m (hamming_top2 from reloc_attempt, that call
+                 replayed with the plain version); then
+                 tools/scaling.measure_scaling on the mesh, printed as a
+                 JSON line, and its problem solved on the mesh within
+                 5e-4 of one shard (its points fill every shard's block),
+                 the shards' poses bit-equal;
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
@@ -186,8 +210,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  ``host_us_by_point``).
 No profiler session of phase 20, 9 or 22 precedes a timed measurement:
 phases run in the order 1-8, 10-19, 20's corridor, orbit and rectify, 21,
-22, 9's timed part, 20's profiled window, 9's device times, 22's root-shape
-kernel times.  (Phases 12, 16 and 18
+22, 23, 9's timed part, 20's profiled window, 9's device times, 22's
+root-shape kernel times.  (Phases 12, 16 and 18
 profile windows of their own, before phase 19.)
 Every time printed carries the card's name and power limit.  The line
 before the last is the kernels' JSON record (launches per path); the last
@@ -1471,15 +1495,7 @@ def phase_gba_solvers(smi):
     n_solves = len(solves) // 2                  # warm-up and timed
     out_d, ms_d, gib_d = run("dense")
     kv, pv = ms.kf_valid, ms.mp_valid
-    pose_gap = float(torch.max(torch.abs(out_cg.kf_pose[kv]
-                                         - out_d.kf_pose[kv])))
-    c0 = lie.se3_inv(ms.kf_pose[0])[:3, 3]
-    xc, xd = out_cg.mp_pos[pv], out_d.mp_pos[pv]
-    gap = torch.linalg.norm(xc - xd, dim=1)
-    rng_m = torch.linalg.norm(xd - c0, dim=1)
-    near = rng_m < cfg.camera.th_depth * cfg.camera.baseline
-    near_gap = float(gap[near].max()) if bool(near.any()) else 0.0
-    rel_gap = float((gap / rng_m).max())
+    pose_gap, near_gap, rel_gap, n_near = _map_gaps(cfg, ms, out_cg, out_d)
 
     per_step, top = {}, []
 
@@ -1504,19 +1520,47 @@ def phase_gba_solvers(smi):
           f"rows: CG {ms_cg:.1f} ms, peak +{gib_cg:.3f} GiB ({n_solves} "
           f"CG solves of 48 steps); dense {ms_d:.1f} ms, peak +{gib_d:.3f} "
           f"GiB; |Δpose| {pose_gap:.2e}, points nearer than 20 m "
-          f"|Δ| {near_gap:.2e} m ({int(near.sum())}), all |Δ|/range "
+          f"|Δ| {near_gap:.2e} m ({n_near}), all |Δ|/range "
           f"{rel_gap:.2e}; a CG step: {k_step:.1f} kernels, {ms_step:.4f} "
           f"ms of device time (torch.profiler, 16 vs 8 steps); a 16-step "
           f"solve's top kernels by device ms {top} ({smi})", flush=True)
     if not solves:
         raise AssertionError("gba: the chunk did not take the CG solver")
-    if not (pose_gap < 1e-4 and near_gap < 1e-3 and rel_gap < 2e-2):
+    if not _within_gba_bars(pose_gap, near_gap, rel_gap):
         raise AssertionError(f"gba: CG and dense differ: poses {pose_gap}, "
                              f"near points {near_gap} m, relative "
                              f"{rel_gap}")
     return {"cg_ms": ms_cg, "dense_ms": ms_d, "cg_gib": gib_cg,
             "dense_gib": gib_d, "kernels_per_cg_step": k_step,
-            "device_ms_per_cg_step": ms_step}
+            "device_ms_per_cg_step": ms_step,
+            # phase 23 runs the same chunk sharded on this map
+            "case": {"cfg": cfg, "ms": ms, "out_cg": out_cg}}
+
+
+def _map_gaps(cfg, ms, a, b):
+    """How far two BA results ``a`` and ``b`` of the map ``ms`` lie apart:
+    the largest pose entry difference over live keyframes, the largest
+    point gap (m) among live points nearer than th_depth · baseline (20 m)
+    to the gauge camera, the largest gap relative to the range, and the
+    count of near points."""
+    from orbslam2_tpu_torch.utils import lie
+
+    kv, pv = ms.kf_valid, ms.mp_valid
+    pose_gap = float(torch.max(torch.abs(a.kf_pose[kv] - b.kf_pose[kv])))
+    c0 = lie.se3_inv(ms.kf_pose[0])[:3, 3]
+    xa, xb = a.mp_pos[pv], b.mp_pos[pv]
+    gap = torch.linalg.norm(xa - xb, dim=1)
+    rng_m = torch.linalg.norm(xb - c0, dim=1)
+    near = rng_m < cfg.camera.th_depth * cfg.camera.baseline
+    near_gap = float(gap[near].max()) if bool(near.any()) else 0.0
+    return pose_gap, near_gap, float((gap / rng_m).max()), int(near.sum())
+
+
+def _within_gba_bars(pose_gap, near_gap, rel_gap):
+    """Phase 16's bars: poses within 1e-4, points nearer than 20 m within
+    1e-3 m, all within 2e-2 of their range (far stereo depth is barely
+    observed)."""
+    return pose_gap < 1e-4 and near_gap < 1e-3 and rel_gap < 2e-2
 
 
 # phases 17-18: mono (tests/test_mono.py:81-107; bench.py:199-231)
@@ -1851,6 +1895,8 @@ def phase_system(smi, frames):
         sys1.save_map(map_path)
         save_ms = 1e3 * (time.perf_counter() - t0)
         mb = os.path.getsize(map_path) / 1e6
+        with open(map_path, "rb") as f:
+            map_npz = f.read()             # phase 23 loads it again
         t0 = time.perf_counter()
         ms, db, counters = serialization.load_map(map_path)
         torch.cuda.synchronize()
@@ -1982,7 +2028,7 @@ def phase_system(smi, frames):
     return by_site, {"ms": float(np.median(frame_ms[1:])),
                      "save_ms": save_ms, "load_ms": load_ms, "mb": mb,
                      "replay_median_ms": rep.median_ms,
-                     "replay_mean_ms": rep.mean_ms}
+                     "replay_mean_ms": rep.mean_ms, "map_npz": map_npz}
 
 
 # phase 20: the async pipeline (orbslam2_tpu_torch/runtime/pipeline.py)
@@ -3018,6 +3064,279 @@ def phase_vocab_kernel_device(smi, root):
             "bound_by": bound_by}
 
 
+# phase 23: the mesh (orbslam2_tpu_torch/parallel/*) with its shards on
+# the one card
+MESH_SHARDS = 4
+
+
+def _timed_cuda(fn):
+    """(result, CUDA-event ms, peak device GiB over the memory before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return (out, a.elapsed_time(b),
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+
+def phase_mesh(smi, case, map_npz):
+    """Phase 23: parallel/* with MESH_SHARDS shards on cuda:0 (JAX's
+    virtual devices of one host).  (a) Phase 16's perturbed capacity map
+    (``case``): one robust CG chunk through distributed_bundle_adjust,
+    against phase 16's unsharded CG chunk within phase 16's bars; the
+    shards' poses bit-equal; ms (CUDA events, once warm-up, once timed)
+    and peak memory.  That map's live points all lie in shard 0's block,
+    so the same chunk runs again on the map with its point slots shuffled
+    (every shard owns live points, every sum crosses shards), un-shuffled
+    and held to the same bars.  (b) A GbaManager with the mesh launched,
+    waited and merged on that map (stats["distributed"] == 1), within the
+    same bars of the unsharded manager's merge; it runs on one active
+    shard (the manager solves the map as it lies).  (c) Phase 19's saved map
+    (``map_npz``): a LoopCloser with the mesh and one without (the auto
+    rule: no mesh on one card) register every live keyframe through
+    detect_step: equal candidates and covisibility rows, BoW vectors and
+    scores within 1e-6; then System.load_map into a System whose loop
+    closer has the mesh leaves the DB sharded, and a re-render of frame
+    SYS_RELOC_FRAME relocalizes within 0.1 m (that reloc_attempt replayed
+    with the plain version).  (d) tools/scaling.measure_scaling on the
+    mesh, printed as a JSON line; its problem (whose points fill every
+    shard's block, where phase 16's live points all fall in shard 0's)
+    solved on the mesh within 5e-4 of one shard, the shards' poses
+    bit-equal.  Returns the hamming_top2 launches by site."""
+    import os
+    import tempfile
+
+    from orbslam2_tpu_torch.config import STEREO, CameraConfig
+    from orbslam2_tpu_torch.models import map_state as M
+    from orbslam2_tpu_torch.models import vocabulary as voc_mod
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.parallel import db_shard, dist_ba
+    from orbslam2_tpu_torch.parallel import mesh as mesh_mod
+    from orbslam2_tpu_torch.runtime import gba, serialization, tracking
+    from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
+    from orbslam2_tpu_torch.runtime.system import System
+    from orbslam2_tpu_torch.tools import scaling
+    from orbslam2_tpu_torch.utils import camera as cam_mod
+    from orbslam2_tpu_torch.utils import synthetic
+
+    t_phase = time.perf_counter()
+    ht2.reset_launch_counts()          # the mesh path's count
+    mesh = mesh_mod.make_mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+
+    # (a) one robust chunk, sharded, against phase 16's
+    cfg, ms = case["cfg"], case["ms"]
+    prob = gba.full_map_problem(cfg, ms, M.kf_obs_ok(ms))
+    cam = cam_mod.Camera.from_config(cfg.camera)
+
+    def chunk():
+        return dist_ba.shard_bundle_adjust(
+            mesh, cam, prob, n_free=ms.K, iters_a=5, iters_b=0,
+            fix_first_free=True)
+
+    chunk()                                        # warm-up
+    outs, chunk_ms, chunk_gib = _timed_cuda(chunk)
+    same_bits = all(torch.equal(o[0], outs[0][0]) for o in outs[1:])
+    out = gba.with_ba_result(ms, outs[0][0], outs[0][1])
+    gaps = _map_gaps(cfg, ms, out, case["out_cg"])
+
+    def live_rows(p):
+        """Observation rows a shard and the live rows by shard."""
+        obs, _, P_pad, O_loc = dist_ba._partition_by_point(
+            dist_ba._on_host(p), mesh.size)
+        P_loc = P_pad // mesh.size
+        return O_loc, [int(np.sum(
+            obs["valid"][d * O_loc:(d + 1) * O_loc]
+            & (obs["pt_i"][d * O_loc:(d + 1) * O_loc] // P_loc == d)))
+            for d in range(mesh.size)]
+
+    O_loc, live = live_rows(prob)
+    print(f"[mesh] one robust GBA chunk at {ms.K} KF slots on "
+          f"{MESH_SHARDS} shards of cuda:0 ({O_loc} observation rows a "
+          f"shard, {prob.cam_i.shape[0]} in all; live rows by shard "
+          f"{live}): {chunk_ms:.1f} ms, peak "
+          f"+{chunk_gib:.3f} GiB (phase 16 unsharded CG: see [gba]); "
+          f"shards' poses bit-equal {same_bits}; against phase 16's CG "
+          f"chunk |Δpose| {gaps[0]:.2e}, points nearer than 20 m |Δ| "
+          f"{gaps[1]:.2e} m ({gaps[3]}), all |Δ|/range {gaps[2]:.2e} "
+          f"({smi})", flush=True)
+    if not same_bits:
+        raise AssertionError("mesh: the shards' poses differ")
+    if not _within_gba_bars(*gaps[:3]):
+        raise AssertionError(f"mesh: the sharded chunk is off phase 16's: "
+                             f"{gaps}")
+
+    # the same chunk with the map's point slots shuffled: phase 16's live
+    # points all lie in shard 0's block, so above shards 1-3 sum zeros;
+    # here every shard owns live points and every sum crosses shards
+    P = prob.points.shape[0]
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(23))
+    perm = perm.to(prob.points.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(P, device=perm.device)
+    pprob = prob._replace(points=prob.points[perm],
+                          point_valid=prob.point_valid[perm],
+                          pt_i=inv[prob.pt_i])
+    pouts, pchunk_ms, pchunk_gib = _timed_cuda(
+        lambda: dist_ba.shard_bundle_adjust(
+            mesh, cam, pprob, n_free=ms.K, iters_a=5, iters_b=0,
+            fix_first_free=True))
+    p_bits = all(torch.equal(o[0], pouts[0][0]) for o in pouts[1:])
+    pgaps = _map_gaps(cfg, ms, gba.with_ba_result(ms, pouts[0][0],
+                                                  pouts[0][1][inv]),
+                      case["out_cg"])
+    pO_loc, plive = live_rows(pprob)
+    print(f"[mesh] the same chunk with the point slots shuffled ({pO_loc} "
+          f"observation rows a shard; live rows by shard {plive}): "
+          f"{pchunk_ms:.1f} ms, peak +{pchunk_gib:.3f} GiB; shards' poses "
+          f"bit-equal {p_bits}; against phase 16's CG chunk |Δpose| "
+          f"{pgaps[0]:.2e}, near points |Δ| {pgaps[1]:.2e} m, all "
+          f"|Δ|/range {pgaps[2]:.2e} ({smi})", flush=True)
+    if not (p_bits and min(plive) > 0):
+        raise AssertionError(f"mesh: shuffled chunk: shards' poses "
+                             f"bit-equal {p_bits}, live rows {plive}")
+    if not _within_gba_bars(*pgaps[:3]):
+        raise AssertionError(f"mesh: the shuffled sharded chunk is off "
+                             f"phase 16's: {pgaps}")
+    del pprob, pouts
+
+    # (b) the manager on the mesh against the unsharded manager
+    def merged(mgr):
+        mgr.launch(ms)
+        mgr.wait()
+        res, ok = mgr.poll_and_merge(ms)
+        if not ok:
+            raise AssertionError("mesh: the GBA merged nothing")
+        return res
+
+    mgr = gba.GbaManager(cfg, mesh=mesh)
+    plain = gba.GbaManager(cfg)
+    got, mgr_ms, mgr_gib = _timed_cuda(lambda: merged(mgr))
+    want, plain_ms, plain_gib = _timed_cuda(lambda: merged(plain))
+    gaps = _map_gaps(cfg, ms, got, want)
+    print(f"[mesh] GbaManager ({mgr.n_chunks} chunks) launch to merge: "
+          f"on the mesh {mgr_ms:.1f} ms, peak +{mgr_gib:.3f} GiB; "
+          f"unsharded {plain_ms:.1f} ms, peak +{plain_gib:.3f} GiB; stats "
+          f"{mgr.stats} / {plain.stats}; |Δpose| {gaps[0]:.2e}, near "
+          f"points |Δ| {gaps[1]:.2e} m, all |Δ|/range {gaps[2]:.2e} "
+          f"({smi})", flush=True)
+    if not (mgr.stats["distributed"] == 1 and plain.mesh is None
+            and plain.stats["distributed"] == 0):
+        raise AssertionError(f"mesh: managers' stats {mgr.stats}, "
+                             f"{plain.stats}")
+    if not _within_gba_bars(*gaps[:3]):
+        raise AssertionError(f"mesh: the managers' merges differ: {gaps}")
+    del case, ms, prob, outs, out, got, want
+
+    # (c) the DB: detect_step on the mesh against the dense DB, then
+    # System.load_map into a loop closer with the mesh
+    cfg = bench_config()
+    voc = voc_mod.default_vocabulary(k=cfg.capacity.vocab_k,
+                                     levels=cfg.capacity.vocab_levels)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        with open(path, "wb") as f:
+            f.write(map_npz)
+        lms, _, _ = serialization.load_map(path)
+        dense = LoopCloser(cfg, voc)
+        sharded = LoopCloser(cfg, voc, mesh=mesh)
+        if dense.mesh is not None:
+            raise AssertionError("mesh: one card made a mesh")
+        kfs = torch.nonzero(lms.kf_valid).flatten().tolist()
+        vec_gap = score_gap = 0.0
+        same_info = True
+        t0 = time.perf_counter()
+        for kf in kfs:
+            sharded.db, vec, info = sharded.fns.detect_step(lms, sharded.db,
+                                                            kf)
+            dense.db, dvec, dinfo = dense.fns.detect_step(lms, dense.db, kf)
+            same_info = same_info and torch.equal(info, dinfo)
+            vec_gap = max(vec_gap, float((vec - dvec).abs().max()))
+            score_gap = max(score_gap, float(
+                (sharded.db.scores(vec) - dense.db.scores(vec)).abs().max()))
+        torch.cuda.synchronize()
+        db_ms = 1e3 * (time.perf_counter() - t0) / max(len(kfs), 1)
+
+        sys4 = System(None, None, STEREO, config=cfg)
+        eng = sys4.engine
+        eng.loop_closer = LoopCloser(cfg, eng.loop_closer.voc, mesh=mesh)
+        sys4.load_map(path)
+    lc = eng.loop_closer
+    is_sharded = (isinstance(lc.db, db_shard.ShardedKeyFrameDB)
+                  and len(lc.db.blocks) == MESH_SHARDS)
+    attempt, calls = lc.fns.reloc_attempt, []
+
+    def recorded(*args):
+        calls.append((args, args[-1].get_state()))
+        return attempt(*args)
+
+    lc.fns = lc.fns._replace(reloc_attempt=recorded)
+    poses_gt = shaken_trajectory()
+    world = synthetic.make_world(np.random.default_rng(0))  # phase 4's
+    T_back = poses_gt[SYS_RELOC_FRAME]
+    try:
+        Tcw = sys4.track_stereo(*synthetic.render_world_stereo(
+            world, cfg.camera, T_back, np.random.default_rng(23), 1.0),
+            99.0)
+        torch.cuda.synchronize()
+    finally:
+        lc.fns = lc.fns._replace(reloc_attempt=attempt)
+    d = float("inf")
+    if Tcw is not None:
+        Te = Tcw @ poses_gt[0]
+        d = float(np.linalg.norm(-Te[:3, :3].T @ Te[:3, 3]
+                                 + T_back[:3, :3].T @ T_back[:3, 3]))
+    print(f"[mesh] keyframe DB over {MESH_SHARDS} shards: {len(kfs)} "
+          f"keyframes of phase 19's map through detect_step, candidates "
+          f"and covisibility rows equal to the dense DB's {same_info}, "
+          f"|Δvec| {vec_gap:.2e}, |Δscores| {score_gap:.2e}, "
+          f"{db_ms:.1f} ms a keyframe (both closers); System.load_map into "
+          f"a loop closer with the mesh: sharded {is_sharded}, "
+          f"relocalized within {d:.4f} m, state {sys4.get_tracking_state()} "
+          f"({smi})", flush=True)
+    if not (same_info and vec_gap <= 1e-6 and score_gap <= 1e-6):
+        raise AssertionError("mesh: the sharded DB differs from the dense")
+    if not is_sharded:
+        raise AssertionError("mesh: load_map left the DB dense")
+    if not (d < 0.1 and sys4.get_tracking_state() == tracking.OK):
+        raise AssertionError(f"mesh: relocalized {d} m off (need < 0.1)")
+    live_reloc_call(eng, attempt, *calls[-1])
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+
+    # (d) scaling: the same problem on one shard and on the mesh; that
+    # problem's points fill every shard's block, so its solve is also
+    # held against one shard's (JAX's sharded-against-single bar, 5e-4)
+    sc = scaling.measure_scaling(mesh.devices)
+    print(json.dumps(sc), flush=True)
+    scfg = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0)
+    scam = cam_mod.Camera.from_config(scfg)
+    sprob = scaling._problem(scfg, 64, 512, 8192, device=mesh.devices[0])
+    outs = dist_ba.shard_bundle_adjust(mesh, scam, sprob, n_free=64,
+                                       fix_first_free=True)
+    one = dist_ba.distributed_bundle_adjust(
+        mesh_mod.make_mesh(mesh.devices[:1]), scam, sprob, n_free=64,
+        fix_first_free=True)[0]
+    s_bits = all(torch.equal(o[0], outs[0][0]) for o in outs[1:])
+    s_gap = float((outs[0][0] - one).abs().max())
+    print(f"[mesh] the scaling problem on {MESH_SHARDS} shards against one: "
+          f"|Δpose| {s_gap:.2e}, shards' poses bit-equal {s_bits} ({smi})",
+          flush=True)
+    if not (s_bits and s_gap < 5e-4):
+        raise AssertionError(f"mesh: the scaling problem's sharded solve "
+                             f"is off one shard's: {s_gap}, {s_bits}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[mesh] phase 23 {phase_s:.1f} s; hamming_top2 launches by path "
+          f"{by_site} ({smi})", flush=True)
+    return by_site, {"chunk_ms": chunk_ms, "chunk_gib": chunk_gib,
+                     "shuffled_ms": pchunk_ms, "mgr_ms": mgr_ms, "plain_ms": plain_ms,
+                     "eff_pct": sc["scaling_efficiency_pct"],
+                     "phase_s": phase_s}
+
+
 def main():
     smi = phase_device()
     phase_build(smi)
@@ -3044,9 +3363,11 @@ def main():
         {"eng": weng, "frames": wframes, "poses": wposes}, smi)
     del eng, weng, wframes
     gba_times = phase_gba_solvers(smi)
+    gba_case = gba_times.pop("case")
     mono_sites, mono = phase_mono_slice(smi)
     bench_mono_sites, bench_mono = phase_bench_mono(smi)
     system_sites, system = phase_system(smi, corridor[:SYS_FRAMES])
+    map_npz = system.pop("map_npz")
     # every timed measurement before the profiled windows of phases 20
     # and 9
     async_sites, asyn = phase_async(smi, corridor, slice_ms)
@@ -3059,6 +3380,8 @@ def main():
                                           slice_ms)
     del rgbd_frames
     vocab_sites, vocab, vocab_root = phase_vocabulary(smi)
+    mesh_sites, mesh = phase_mesh(smi, gba_case, map_npz)
+    del gba_case, map_npz
     k = phase_kernel_times(smi, main_inputs)
     asyn["both_ms"] = phase_async_profiled(smi, corridor)
     del corridor
@@ -3078,7 +3401,8 @@ def main():
                "System (phase 19)": system_sites,
                "async (phase 20)": async_sites,
                "drivers (phase 21)": driver_sites,
-               "vocabulary (phase 22)": vocab_sites}
+               "vocabulary (phase 22)": vocab_sites,
+               "mesh (phase 23)": mesh_sites}
     print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
           f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
@@ -3108,7 +3432,13 @@ def main():
           f"detect_plane {drivers['ar']['ms']:.3f} ms; vocabulary: "
           f"harvest {vocab['render_ms']:.1f} + {vocab['extract_ms']:.2f} ms "
           f"a view, build {vocab['build_s']:.3f} s on the card / "
-          f"{vocab['cpu_build_s']:.2f} s on the CPU ({smi})", flush=True)
+          f"{vocab['cpu_build_s']:.2f} s on the CPU; mesh of "
+          f"{MESH_SHARDS} shards on cuda:0: a GBA chunk "
+          f"{mesh['chunk_ms']:.1f} ms / {mesh['chunk_gib']:.3f} GiB "
+          f"({mesh['shuffled_ms']:.1f} ms with the slots shuffled), the "
+          f"manager {mesh['mgr_ms']:.1f} ms against {mesh['plain_ms']:.1f} "
+          f"unsharded, scaling efficiency {mesh['eff_pct']:.1f}% "
+          f"(phase 23 {mesh['phase_s']:.1f} s) ({smi})", flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

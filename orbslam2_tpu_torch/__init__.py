@@ -1,7 +1,11 @@
 """orbslam2_tpu_torch — the PyTorch/CUDA port of ``orbslam2_tpu``.
 
 Same layout as the JAX package (``ops/``, ``models/``, ``utils/``,
-``runtime/``); each module's docstring names the JAX file it ports.  The
+``runtime/``, ``parallel/``, ``tools/``); each module's docstring names
+the JAX file it ports.  ``parallel/`` holds the mesh of shards (one
+thread a shard, a ``torch.distributed`` group across processes), the
+point-sharded global BA and the row-sharded keyframe DB; the engines
+take it only where there is more than one CUDA device.  The
 port imports torch and numpy only — never jax, never ``orbslam2_tpu`` —
 so it starts on a GPU host that has no jax.  The numpy-only modules it
 needs (``config.py``, ``ops/pattern.py``, ``utils/synthetic.py``) are

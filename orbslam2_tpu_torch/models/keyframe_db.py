@@ -37,6 +37,15 @@ class KeyFrameDB(NamedTuple):
     def erase(self, kf: int) -> "KeyFrameDB":
         return self._replace(valid=M._set_row(self.valid, kf, False))
 
+    def scores(self, vec: torch.Tensor) -> torch.Tensor:
+        """[K] BoW similarity of every row to ``vec`` (the query matvec;
+        ``parallel/db_shard.ShardedKeyFrameDB`` answers it by shards)."""
+        return self.bow @ vec
+
+    def gathered(self) -> "KeyFrameDB":
+        """The dense database: this one (a sharded one gathers its rows)."""
+        return self
+
 
 CAND_POOL = 32  # min score-gated candidates entering group accumulation
 
@@ -74,11 +83,11 @@ def detect_candidates(db: KeyFrameDB, ms: M.MapState,
 
     Loop mode (``query_kf`` ≥ 0): exclude the query and everything
     covisible with it, gate by ``min_score``.  Relocalization: query_kf −1
-    and min_score 0.  Returns (candidate kf ids [n_candidates] int64,
-    scores), −1 padded."""
-    K = db.bow.shape[0]
-    dev = db.bow.device
-    scores = db.bow @ query_bow                               # [K]
+    and min_score 0.  ``db`` is a ``KeyFrameDB`` or a sharded one.
+    Returns (candidate kf ids [n_candidates] int64, scores), −1 padded."""
+    scores = db.scores(query_bow)                             # [K]
+    K = scores.shape[0]
+    dev = scores.device
     ok = db.valid & ms.kf_valid
     if query_kf >= 0:
         q_row = M.covisibility_row(ms, query_kf)

@@ -20,8 +20,18 @@ Landmarks are back-substituted.  Schedule: 5 robust (Huber) iterations,
 outlier classification, 10 plain ones, final classification.  The JAX
 ``scan``/``cond`` pair becomes a Python loop: an accepted step
 re-linearises, a rejected one keeps the carried system with a larger λ,
-and the loop stops at the JAX ``done`` flag.  The mesh path
-(``axis_name``) is not ported.
+and the loop stops at the JAX ``done`` flag.
+
+``allsum`` is the counterpart of the JAX version's ``axis_name``: the
+call then runs as one shard of a mesh (``parallel/dist_ba.py``), with
+its observations and points a block partitioned by point, ``pt_i``
+local, and the poses replicated.  Every camera-side sum closes through
+``allsum`` (Hcc, g_c, the cost, and in the CG solve the rhs, the block
+diagonal and the one [C, 6] sum per matvec); the point-side sums stay
+local.  The host reads accept/done every LM iteration, so every shard
+takes the same branch only because ``allsum`` hands each the same bits
+(``parallel/mesh.py``).  CG only, as in JAX: the dense coupling is per
+point and cannot shard by observation.
 """
 
 from __future__ import annotations
@@ -134,13 +144,16 @@ LAM0 = 1e-4   # initial LM damping
 def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, n_free: int,
                   iters_a: int = 5, iters_b: int = 10,
                   fix_first_free: bool = False, solver: str = "dense",
-                  cg_iters: int = 48
+                  cg_iters: int = 48, allsum=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Two-stage LM schedule.  ``fix_first_free`` also freezes camera 0
-    (the global-BA gauge).  ``solver`` is ``"dense"`` or ``"cg"`` (see
-    the module docstring).  Returns (poses, points, obs_inlier)."""
+    (the global-BA gauge).  ``solver`` is ``"dense"`` or ``"cg"``;
+    ``allsum`` runs the call as one shard of a mesh (see the module
+    docstring).  Returns (poses, points, obs_inlier)."""
     if solver not in ("dense", "cg"):
         raise ValueError(f"bundle_adjust: unknown solver {solver!r}")
+    if allsum is not None and solver != "cg":
+        raise ValueError("sharded bundle_adjust requires solver='cg'")
     C = n_free
     P = prob.points.shape[0]
     dtype, dev = prob.poses.dtype, prob.poses.device
@@ -149,7 +162,8 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, n_free: int,
     cam_ok = prob.valid & (prob.cam_i < C)       # rows of free cameras
 
     def to_cams(vals):                           # [O, ...] → [C, ...]
-        return _segment_sum(vals, prob.cam_i, C, cam_ok)
+        out = _segment_sum(vals, prob.cam_i, C, cam_ok)
+        return out if allsum is None else allsum(out)
 
     def to_pts(vals):                            # [O, ...] → [P, ...]
         return _segment_sum(vals, pt_i, P, prob.valid)
@@ -165,8 +179,9 @@ def bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, n_free: int,
                 rho = torch.where(r <= d, sq, 2.0 * d * r - d * d)
             else:
                 rho = sq
-            return torch.sum(torch.where(obs_w > 0, rho,
-                                         torch.zeros_like(rho)) * obs_w)
+            total = torch.sum(torch.where(obs_w > 0, rho,
+                                          torch.zeros_like(rho)) * obs_w)
+            return total if allsum is None else allsum(total)
 
         def linearize(poses, points):
             e, Jc, Jp, is_s, behind = _residuals_jacobians(cam, poses,

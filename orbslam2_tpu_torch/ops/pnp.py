@@ -9,7 +9,9 @@ minimal sets, and the winner re-solved on its inlier set.
 
 ``torch.linalg.eigh`` and ``jnp.linalg.eigh`` may return eigenvectors of
 opposite sign, so the control points and null-space vectors differ
-between the two; the pose they give does not.  Minimal sets come from an
+between the two; the pose they give does not.  A non-finite matrix (a
+degenerate hypothesis or inlier set) gives NaN eigenvectors, as in JAX,
+where ``torch.linalg.eigh`` would raise.  Minimal sets come from an
 explicit ``torch.Generator`` or are given as ``idx`` [H, 4].
 """
 
@@ -33,6 +35,14 @@ def _solve_psd(A, b, eps=1e-9):
     return torch.linalg.solve_ex(A + eps * eye, b[..., None])[0][..., 0]
 
 
+def _eigh(A: torch.Tensor):
+    """``torch.linalg.eigh`` that gives NaN for a non-finite matrix."""
+    ok = torch.isfinite(A).all(dim=-1).all(dim=-1)
+    ev, V = torch.linalg.eigh(torch.where(ok[..., None, None], A, 0.0))
+    return (torch.where(ok[..., None], ev, float("nan")),
+            torch.where(ok[..., None, None], V, float("nan")))
+
+
 def _epnp_solve(Xw: torch.Tensor, xy_norm: torch.Tensor,
                 w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """EPnP over a batch: Xw [..., S, 3] world points, xy_norm [..., S, 2]
@@ -48,7 +58,7 @@ def _epnp_solve(Xw: torch.Tensor, xy_norm: torch.Tensor,
     mu = torch.sum(Xw * wn[..., None], dim=-2)                  # [..., 3]
     Xc = Xw - mu[..., None, :]
     cov = torch.einsum("...si,...sj,...s->...ij", Xc, Xc, wn)
-    ev, V = torch.linalg.eigh(cov)                              # ascending
+    ev, V = _eigh(cov)                                          # ascending
     scale = torch.sqrt(torch.clamp(ev, min=1e-9))
     axes = V.transpose(-1, -2) * scale[..., None]
     ctrl = torch.cat([mu[..., None, :], mu[..., None, :] + axes],
@@ -70,7 +80,7 @@ def _epnp_solve(Xw: torch.Tensor, xy_norm: torch.Tensor,
     Mm = torch.cat([row_u.reshape(row_u.shape[:-2] + (12,)) * sw,
                     row_v.reshape(row_v.shape[:-2] + (12,)) * sw], dim=-2)
     MtM = Mm.transpose(-1, -2) @ Mm
-    _, VV = torch.linalg.eigh(MtM)
+    _, VV = _eigh(MtM)
     vk = VV[..., :, :4].transpose(-1, -2).reshape(
         VV.shape[:-2] + (4, 4, 3))                           # [.., 4, 4, 3]
 

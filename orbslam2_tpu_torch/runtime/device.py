@@ -52,12 +52,16 @@ def handoff(obj, event):
     (``record_stream``), so that the caching allocator gives its block to
     no new tensor of the producer's stream while this one may still read
     it.  PyTorch's side streams do not synchronise with the default
-    stream.  Nothing to do when ``event`` is None (the CPU)."""
+    stream.  Nothing to do when ``event`` is None (the CPU).  The stream
+    is that of the first tensor's device; tensors on other devices (the
+    blocks of a DB sharded over several cards) stay with their own
+    devices' streams."""
     if event is None:
         return obj
     ts = [t for t in _tensors(obj) if t.is_cuda]
     stream = torch.cuda.current_stream(ts[0].device if ts else None)
     stream.wait_event(event)
     for t in ts:
-        t.record_stream(stream)
+        if t.device == stream.device:
+            t.record_stream(stream)
     return obj

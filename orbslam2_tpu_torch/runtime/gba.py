@@ -22,8 +22,14 @@ records an event on the caller's current stream, which the thread's
 stream waits on before it reads the snapshot; the thread records one
 after its solve, which the caller's stream waits on in
 ``poll_and_merge`` before the merge.  With the caller on the default
-stream too, both waits are no-ops.  The mesh path of the JAX version is
-not ported.
+stream too, both waits are no-ops.
+
+With a mesh (``parallel/mesh.py``; the loop closer hands on its own,
+which the engines' auto rule makes where its device is one of several
+local CUDA devices; None: no mesh) the solve takes the JAX version's
+mesh path (``gba.py:252-294``): the same chunked schedule through
+``parallel/dist_ba.distributed_bundle_adjust`` (CG, observations sharded
+by point block), the shard threads started from the GBA thread.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 from orbslam2_tpu_torch.config import SlamConfig
 from orbslam2_tpu_torch.models import map_state as M
 from orbslam2_tpu_torch.ops import bundle
+from orbslam2_tpu_torch.parallel import dist_ba
 from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.utils import camera as cam_mod
 from orbslam2_tpu_torch.utils import lie
@@ -140,10 +147,11 @@ class GbaManager:
     """Owns the background GBA thread (the reference's spawned
     RunGlobalBundleAdjustment thread with mbStopGBA / mbRunningGBA)."""
 
-    def __init__(self, cfg: SlamConfig, n_chunks: int = 3):
+    def __init__(self, cfg: SlamConfig, n_chunks: int = 3, mesh=None):
         self.cfg = cfg
         self.n_chunks = n_chunks
         self.f_chunk, self.f_merge = make_gba_fns(cfg)
+        self.mesh = mesh      # None: the unsharded solve
         self._thread: Optional[threading.Thread] = None
         self._abort = threading.Event()
         # a finished solve and the event its stream recorded after it
@@ -151,7 +159,7 @@ class GbaManager:
         self._error: Optional[Exception] = None
         self._lock = threading.Lock()
         self.stats = {"launched": 0, "aborted": 0, "finished": 0,
-                      "merged": 0}
+                      "merged": 0, "distributed": 0}
 
     @property
     def running(self) -> bool:
@@ -219,10 +227,29 @@ class GbaManager:
             ms, obs_w = self.f_chunk(ms, obs_w, use_huber=(chunk == 0))
         return ms
 
+    def _solve_distributed(self, snap: M.MapState) -> Optional[M.MapState]:
+        """The mesh path: a robust first chunk, then plain chunks on the
+        surviving inliers, the abort checked between chunks."""
+        cam = cam_mod.Camera.from_config(self.cfg.camera)
+        prob = full_map_problem(self.cfg, snap, M.kf_obs_ok(snap))
+        self.stats["distributed"] += 1
+        for chunk in range(self.n_chunks):
+            if self._abort.is_set():
+                return None
+            poses, points, inlier = dist_ba.distributed_bundle_adjust(
+                self.mesh, cam, prob, n_free=snap.K,
+                iters_a=5 if chunk == 0 else 0,
+                iters_b=0 if chunk == 0 else 5, fix_first_free=True)
+            dev = prob.poses.device
+            prob = prob._replace(poses=poses.to(dev), points=points.to(dev),
+                                 valid=prob.valid & inlier.to(dev))
+        return with_ba_result(snap, prob.poses, prob.points)
+
     def _run(self, snap: M.MapState, ready) -> None:
         try:
             device_mod.handoff(snap, ready)
-            ms = self._solve_chunks(snap)
+            ms = (self._solve_distributed(snap) if self.mesh is not None
+                  else self._solve_chunks(snap))
             if ms is None or self._abort.is_set():
                 return
             res = GbaResult(

@@ -22,7 +22,13 @@ the device.  RANSAC draws come from the closer's ``torch.Generator``,
 seeded 42 as the JAX closer's ``PRNGKey(42)``.  ``global_ba`` is the
 one-shot full-map BA of RunGlobalBundleAdjustment through the CG solver
 (the engine runs the chunked background GBA of runtime/gba.py instead).
-Not ported: the JIT ``prewarm*`` and the mesh routing.
+
+With a mesh (``parallel/mesh.py``: given as ``mesh=``, or made where the
+closer's device is one of several local CUDA devices, JAX's
+``device_count() > 1``) the keyframe DB is sharded by rows over it
+(``parallel/db_shard.py``; every reader of ``db`` takes either form) and
+the closer's ``GbaManager`` solves on it.  Not ported: the JIT
+``prewarm*``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from orbslam2_tpu_torch.models.vocabulary import Vocabulary
 from orbslam2_tpu_torch.ops import (bow, bundle, matching, pnp, pose_graph,
                                     pose_opt, sim3opt, sim3solver)
 from orbslam2_tpu_torch.ops.hamming_top2 import launch_site
+from orbslam2_tpu_torch.parallel import db_shard
+from orbslam2_tpu_torch.parallel import mesh as mesh_mod
 from orbslam2_tpu_torch.runtime import device as device_mod
 from orbslam2_tpu_torch.runtime import gba as gba_mod
 from orbslam2_tpu_torch.runtime.gba import GbaManager
@@ -97,7 +105,7 @@ def make_loop_fns(cfg: SlamConfig, voc: Vocabulary) -> LoopFns:
         (LoopClosing.cc:160-174) — candidates must beat it."""
         neigh = ((M.covisibility_row(ms, kf) >= MIN_COVIS_WEIGHT)
                  & ms.kf_valid & db.valid)
-        return torch.amin(torch.where(neigh, db.bow @ vec, float("inf")))
+        return torch.amin(torch.where(neigh, db.scores(vec), float("inf")))
 
     def detect(ms, db, kf: int, vec, min_score):
         return db_mod.detect_candidates(db, ms, vec, kf, min_score,
@@ -366,12 +374,15 @@ class LoopCloser:
     """Host-side orchestration with the consistency-group bookkeeping of
     DetectLoop (LoopClosing.cc:188-248)."""
 
-    def __init__(self, cfg: SlamConfig, voc: Vocabulary, device=None):
+    def __init__(self, cfg: SlamConfig, voc: Vocabulary, device=None,
+                 mesh=None):
         self.cfg = cfg
         self.device = device_mod.resolve(device)
         self.voc = voc.to(self.device)
         self.fns = make_loop_fns(cfg, self.voc)
-        self.gba = GbaManager(cfg)
+        self.mesh = (mesh if mesh is not None
+                     else mesh_mod.auto_mesh(self.device))
+        self.gba = GbaManager(cfg, mesh=self.mesh)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(42)
         self.reset_db()
@@ -382,8 +393,11 @@ class LoopCloser:
         self.last_loop: Optional[Tuple[int, int]] = None
 
     def reset_db(self) -> None:
-        self.db = db_mod.KeyFrameDB.empty(self.cfg.capacity.max_keyframes,
-                                          self.voc.n_words, self.device)
+        """A fresh empty DB, sharded over the mesh where there is one."""
+        db = db_mod.KeyFrameDB.empty(self.cfg.capacity.max_keyframes,
+                                     self.voc.n_words, self.device)
+        self.db = db if self.mesh is None else db_shard.shard_db(self.mesh,
+                                                                 db)
 
     def reset(self) -> None:
         """Tracking::Reset's share of loop closing: no GBA, an empty DB,

@@ -8,7 +8,8 @@ arrays, so a checkpoint is one ``np.savez_compressed`` of
   * ``ms_<field>`` for every ``MapState`` field, in the JAX dtypes
     (descriptor words as uint32; the port holds them as int32, the same
     bits: ``convert.to_numpy`` / ``convert.to_tensor``);
-  * ``db_bow`` and ``db_valid``, the keyframe DB, when there is one;
+  * ``db_bow`` and ``db_valid``, the keyframe DB, when there is one (a
+    DB sharded over a mesh is gathered first: the same file);
   * ``counters_json``, the engine counters as JSON bytes (uint8).
 
 A file written by either package loads in the other.  As in the
@@ -34,7 +35,7 @@ def save_map(path: str, ms: M.MapState, db: Optional[db_mod.KeyFrameDB],
     """Write ``ms``, ``db`` and ``counters`` (plain ints) to ``path``."""
     arrays = {f"ms_{k}": v for k, v in convert.to_numpy(ms).items()}
     if db is not None:
-        d = convert.to_numpy(db)
+        d = convert.to_numpy(db.gathered())
         arrays["db_bow"] = d["bow"]
         arrays["db_valid"] = d["valid"]
     counters = {k: int(v) for k, v in counters.items()}

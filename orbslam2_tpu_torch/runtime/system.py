@@ -25,6 +25,7 @@ import torch
 
 from orbslam2_tpu_torch.config import MONOCULAR, RGBD, STEREO, SlamConfig
 from orbslam2_tpu_torch.models import vocabulary as voc_mod
+from orbslam2_tpu_torch.parallel import db_shard
 from orbslam2_tpu_torch.runtime import serialization, tracking
 from orbslam2_tpu_torch.runtime.slam import SlamEngine
 from orbslam2_tpu_torch.utils import trajectory as traj_mod
@@ -153,6 +154,7 @@ class System:
             setattr(self.engine, attr, getattr(old, attr))
         if lc is not None:
             nlc = self.engine.loop_closer
+            nlc.mesh = nlc.gba.mesh = lc.mesh
             nlc.db = lc.db
             nlc.consistent_groups = lc.consistent_groups
             nlc.prev_loops = lc.prev_loops
@@ -253,16 +255,16 @@ class System:
              "frame_id": self.engine.frame_id})
 
     def load_map(self, path: str):
-        """LoadMap: the map and DB onto the engine's device, then LOST in
+        """LoadMap: the map and DB onto the engine's device (the DB sharded
+        over the loop closer's mesh where it has one), then LOST in
         localization mode, so the first frame relocalizes
         (Tracking.cc:157-158)."""
         eng = self.engine
         ms, db, counters = serialization.load_map(path, eng.device)
         eng.ms = ms
-        # (the JAX package shards the DB over a device mesh here; the
-        # port's mesh, parallel/*, is not ported yet)
-        if db is not None and eng.loop_closer is not None:
-            eng.loop_closer.db = db
+        lc = eng.loop_closer
+        if db is not None and lc is not None:
+            lc.db = db if lc.mesh is None else db_shard.shard_db(lc.mesh, db)
         kf_valid = ms.kf_valid.cpu().numpy()
         eng.n_kfs = counters.get("n_kfs", int(kf_valid.sum()))
         eng.kf_ordinal = counters.get(

@@ -733,3 +733,87 @@ def test_vocabulary_build_on_the_card_matches_the_cpu(monkeypatch):
     # 7 assignments a node with rows, and more where a cluster fell empty
     assert set(launched) == {"vocab_build"}
     assert launched["vocab_build"] > 7 * sum(m > 0 for m in nodes[:31])
+
+
+def test_mesh_of_four_shards_on_the_card_matches_the_cpu():
+    """parallel/*: the scaling problem through distributed_bundle_adjust
+    on 4 shards of cuda:0 (each on its own stream) and on 4 CPU shards:
+    poses within 5e-4 (tests/test_dist_ba.py's sharded-against-single
+    bar), the card's shards bit-equal to each other; a sharded DB's
+    scores on the card within 1e-6 of the dense product."""
+    from orbslam2_tpu_torch.config import CameraConfig
+    from orbslam2_tpu_torch.models.keyframe_db import KeyFrameDB
+    from orbslam2_tpu_torch.parallel import db_shard, dist_ba
+    from orbslam2_tpu_torch.parallel import mesh as mesh_mod
+    from orbslam2_tpu_torch.tools import scaling
+    from orbslam2_tpu_torch.utils import camera as cam_mod
+
+    cfg = CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0)
+    cam = cam_mod.Camera.from_config(cfg)
+    card = mesh_mod.make_mesh(["cuda:0"] * 4)
+    outs = dist_ba.shard_bundle_adjust(
+        card, cam, scaling._problem(cfg, 16, 128, 1024, device="cuda"),
+        n_free=16, fix_first_free=True)
+    cpu = dist_ba.distributed_bundle_adjust(
+        mesh_mod.make_mesh(["cpu"] * 4), cam,
+        scaling._problem(cfg, 16, 128, 1024), n_free=16,
+        fix_first_free=True)[0]
+    assert all(torch.equal(o[0], outs[0][0]) for o in outs[1:])
+    assert float((outs[0][0].cpu() - cpu).abs().max()) < 5e-4
+    rng = np.random.default_rng(0)
+    bow = rng.random((20, 256)).astype(np.float32)
+    bow /= np.linalg.norm(bow, axis=1, keepdims=True)
+    q = torch.from_numpy(bow[3]).cuda()
+    db = db_shard.shard_db(card, KeyFrameDB(
+        bow=torch.from_numpy(bow).cuda(),
+        valid=torch.ones(20, dtype=torch.bool, device="cuda")))
+    np.testing.assert_allclose(db.scores(q).cpu().numpy(), bow @ bow[3],
+                               atol=1e-6)
+
+
+def test_loop_closer_on_the_card_reads_a_db_sharded_elsewhere():
+    """A loop closer on cuda:0 whose mesh lies on other devices (4 CPU
+    shards): the sharded DB's scores and validity come back to the
+    closer's card, and detect_step and the relocalization query equal
+    the dense closer's on the card (vectors and scores within 1e-6)."""
+    from orbslam2_tpu_torch import config as tconfig
+    from orbslam2_tpu_torch.convert import map_state_from_numpy, to_numpy
+    from orbslam2_tpu_torch.models import map_state as TM
+    from orbslam2_tpu_torch.models import vocabulary as tvoc
+    from orbslam2_tpu_torch.parallel import mesh as mesh_mod
+    from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
+
+    cfg = tconfig.SlamConfig(
+        camera=tconfig.CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0,
+                                    bf=150.0, width=640, height=480,
+                                    fps=10.0, th_depth=60.0),
+        orb=tconfig.OrbConfig(n_features=64),
+        capacity=tconfig.CapacityConfig(max_keyframes=16,
+                                        max_map_points=1 << 10,
+                                        local_ba_keyframes=4,
+                                        local_ba_points=256),
+        sensor=tconfig.STEREO)
+    rng = np.random.default_rng(0)
+    d = to_numpy(TM.empty_map(cfg))
+    K, N = cfg.capacity.max_keyframes, cfg.orb.n_features_padded
+    d["kf_desc"] = rng.integers(0, 2 ** 32, size=(K, N, 8), dtype=np.uint32)
+    d["kf_kp_valid"][:8] = rng.random((8, N)) < 0.9
+    d["kf_valid"][:8] = True
+    d["kf_mp"][:4, :40] = np.arange(40)
+    d["mp_valid"][:40] = True
+    ms = map_state_from_numpy(d, device="cuda:0")
+    voc = tvoc.default_vocabulary(k=10, levels=4, device="cuda:0")
+    lc = LoopCloser(cfg, voc, device="cuda:0",
+                    mesh=mesh_mod.make_mesh(["cpu"] * 4))
+    dense = LoopCloser(cfg, voc, device="cuda:0")
+    for k in range(6):
+        lc.db, vec, info = lc.fns.detect_step(ms, lc.db, k)
+        dense.db, dvec, dinfo = dense.fns.detect_step(ms, dense.db, k)
+        assert torch.equal(info, dinfo)
+        assert float((vec - dvec).abs().max()) <= 1e-6
+    assert lc.db.valid.device == lc.db.scores(vec).device == ms.kf_pose.device
+    q = dense.fns.kf_bow_vector(ms, 2)
+    c1, s1 = lc.fns.detect(ms, lc.db, -1, q, 0.0)
+    c2, s2 = dense.fns.detect(ms, dense.db, -1, q, 0.0)
+    assert torch.equal(c1, c2)
+    assert float((s1 - s2).abs().max()) <= 1e-6

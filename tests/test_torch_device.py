@@ -10,7 +10,9 @@ host with a card); an explicit ``device="cpu"`` builds them on the CPU.
 ``track_rgbd`` and ``track_monocular`` upload their frame to the engine's
 device.  Vocabulary building (``harvest_training_descriptors``,
 ``build_vocabulary``, ``default_vocabulary`` of a missing tree) runs on
-the card by default too."""
+the card by default too.  No engine, ``LoopCloser``, ``GbaManager`` or
+``System`` makes a mesh (``parallel/mesh.auto_mesh``) on the CPU or with
+one CUDA device."""
 
 import pytest
 import torch
@@ -223,6 +225,29 @@ def test_driver_passes_device_to_system(driver, monkeypatch, tmp_path):
         with pytest.raises(Stop):
             DRIVERS[driver](replay, live, **kw)
     assert seen == [None, "cpu"]
+
+
+def test_no_mesh_on_the_cpu_or_with_one_card(monkeypatch):
+    """The auto rule, JAX's ``device_count() > 1``: a mesh only where the
+    component's device is one of several CUDA devices.  torch is made to
+    report two cards, then one."""
+    from orbslam2_tpu_torch.parallel import mesh as mesh_mod
+    from orbslam2_tpu_torch.runtime.gba import GbaManager
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert mesh_mod.auto_mesh("cuda") is not None
+    for entry in ("LoopCloser", "System", "SlamEngine"):
+        obj = _build(entry, device="cpu")
+        lc = obj if entry == "LoopCloser" else obj.engine.loop_closer \
+            if entry == "System" else obj.loop_closer
+        assert lc.mesh is None and lc.gba.mesh is None, entry
+    mgr = GbaManager(CFG)
+    mgr.launch(_build("SlamEngine", device="cpu").ms)
+    mgr.wait()
+    assert mgr.mesh is None and mgr.stats["distributed"] == 0
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh_mod.auto_mesh("cuda") is None
 
 
 def test_ar_demo_draws_on_the_engine_device():

@@ -21,7 +21,10 @@ Also, with PIL and cv2 unimportable too, the dataset drivers and the
 stream node (``test_drivers_run_without_jax_pil_or_cv2``).
 Also, with jax unimportable, a small vocabulary harvest and build, and
 ``default_vocabulary`` building a missing tree
-(``test_vocabulary_builds_without_jax``).
+(``test_vocabulary_builds_without_jax``); and ``parallel/*`` with
+``tools/scaling.py``: a sharded bundle adjustment, a ``LoopCloser`` and a
+``GbaManager`` on a mesh of CPU shards, and ``measure_scaling`` at a
+small size (``test_parallel_runs_without_jax``).
 And: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -296,6 +299,61 @@ print("VOCAB_NOJAX_OK")
 """
 
 
+_PARALLEL_CHILD = r"""
+import sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import numpy as np, torch
+torch.set_num_threads(2)
+from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                       OrbConfig, STEREO, SlamConfig)
+from orbslam2_tpu_torch.models import vocabulary as voc_mod
+from orbslam2_tpu_torch.parallel import db_shard, dist_ba, mesh as mesh_mod
+from orbslam2_tpu_torch.runtime.gba import GbaManager
+from orbslam2_tpu_torch.runtime.loop_closing import LoopCloser
+from orbslam2_tpu_torch.runtime.slam import SlamEngine
+from orbslam2_tpu_torch.tools import scaling
+from orbslam2_tpu_torch.utils import synthetic
+cam = CameraConfig(fx=225.0, fy=225.0, cx=160.0, cy=120.0, bf=75.0,
+                   width=320, height=240, fps=10.0, th_depth=60.0)
+cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=200),
+                 capacity=CapacityConfig(max_keyframes=8,
+                                         max_map_points=1024,
+                                         local_ba_keyframes=2,
+                                         local_ba_points=256),
+                 sensor=STEREO)
+rng = np.random.default_rng(0)
+world = synthetic.make_world(rng)
+eng = SlamEngine(cfg, device="cpu")
+assert eng.loop_closer.mesh is None        # the CPU: no mesh by itself
+for i, T in enumerate(synthetic.straight_trajectory(4, step=0.3)):
+    assert eng.track_stereo(*synthetic.render_world_stereo(
+        world, cam, T, rng, 1.0), 0.1 * i) is not None
+eng.finish_gba()
+mesh = mesh_mod.make_mesh(["cpu"] * 2)
+mgr = GbaManager(cfg, mesh=mesh)
+mgr.launch(eng.ms)
+mgr.wait()
+ms, merged = mgr.poll_and_merge(eng.ms)
+assert merged and mgr.stats["distributed"] == 1
+assert bool(torch.isfinite(ms.kf_pose).all())
+voc = voc_mod.default_vocabulary(device="cpu")
+lc = LoopCloser(cfg, voc, device="cpu", mesh=mesh)
+for kf in torch.nonzero(eng.ms.kf_valid).flatten().tolist():
+    lc.db, _, info = lc.fns.detect_step(eng.ms, lc.db, kf)
+assert isinstance(lc.db, db_shard.ShardedKeyFrameDB)
+assert bool(lc.db.valid.any())
+out = scaling.measure_scaling(["cpu"] * 2, C=6, pts_per_cam=48, n_pts=128,
+                              repeats=1)
+assert out["scaling_devices"] == 2 and out["scaling_sharded_ms"] > 0
+assert out["scaling_mode"].startswith("sharding-overhead proxy"), out
+bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
+             or m.startswith("orbslam2_tpu.")
+             or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
+assert not bad, bad
+print("PARALLEL_NOJAX_OK")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
@@ -332,6 +390,16 @@ def test_vocabulary_builds_without_jax():
                          timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "VOCAB_NOJAX_OK" in out.stdout
+
+
+def test_parallel_runs_without_jax():
+    """With jax unimportable: ``parallel/*`` and ``tools/scaling.py`` on a
+    mesh of two CPU shards (see the module docstring)."""
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_CHILD], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "PARALLEL_NOJAX_OK" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -164,6 +164,53 @@ def test_epnp_batch_matches_jax():
     assert (err < 1e-3).mean() >= 0.9, np.sort(err)[-8:]
 
 
+def test_epnp_of_a_non_finite_set_is_nan_as_in_jax():
+    """A point at infinity, even at weight 0, makes the weighted centroid
+    NaN: JAX's eigh returns NaN there, and so does the port's, which
+    would raise in ``torch.linalg.eigh`` otherwise."""
+    rng = np.random.default_rng(13)
+    pts, uv, _, _, _ = _pnp_scene(rng, False)
+    pts[5] = np.inf
+    xy = np.stack([(uv[:, 0] - 320) / 450, (uv[:, 1] - 240) / 450],
+                  -1).astype(np.float32)
+    w = np.ones(len(pts), np.float32)
+    w[5] = 0.0
+    jT = np.asarray(jpnp._epnp_solve(jnp.asarray(pts), jnp.asarray(xy),
+                                     jnp.asarray(w)))
+    tT = A(tpnp._epnp_solve(T(pts), T(xy), T(w)))
+    assert not np.isfinite(jT).all() and not np.isfinite(tT).all()
+    # zero weights everywhere: the refine of a RANSAC that found nothing
+    tZ = A(tpnp._epnp_solve(T(np.where(np.isinf(pts), 0.0, pts)), T(xy),
+                            T(np.zeros_like(w))))
+    assert tZ.shape == (4, 4)
+
+
+def test_pnp_ransac_with_a_point_at_infinity_matches_jax():
+    """One valid match to a point at infinity: its hypotheses and the
+    refine are NaN and lose, in JAX and in the port alike, and the rest
+    of the RANSAC is unchanged.  The pose kept is then a 4-point minimal
+    set's, whose null-space basis differs between LAPACK and XLA
+    (``test_epnp_batch_matches_jax``): it is held to the truth."""
+    rng = np.random.default_rng(11)
+    pts, uv, sig2, valid, T_true = _pnp_scene(rng, planar=False)
+    bad = int(np.flatnonzero(valid)[0])
+    pts[bad] = np.inf
+    key = jax.random.PRNGKey(3)
+    j = jpnp.pnp_ransac(jcam.Camera.from_config(CAM), jnp.asarray(pts),
+                        jnp.asarray(uv), jnp.asarray(sig2),
+                        jnp.asarray(valid), key, n_hypotheses=128)
+    idx = _jax_hypotheses(key, valid, 128, jpnp.MIN_SET)
+    assert (idx == bad).any()
+    t = tpnp.pnp_ransac(_tcam(), T(pts), T(uv), T(sig2), T(valid), None,
+                        n_hypotheses=128, idx=T(idx))
+    np.testing.assert_array_equal(A(t.inliers), np.asarray(j.inliers))
+    assert int(t.n_inliers) == int(j.n_inliers)
+    assert bool(t.ok) == bool(j.ok) is True
+    for Tcw in (A(t.Tcw), np.asarray(j.Tcw)):
+        assert np.isfinite(Tcw).all()
+        assert np.linalg.norm((Tcw @ np.linalg.inv(T_true))[:3, 3]) < 0.3
+
+
 def test_pnp_ransac_without_valid_points_is_not_ok():
     g = torch.Generator().manual_seed(0)
     res = tpnp.pnp_ransac(
