@@ -43,15 +43,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  replayed with the plain version, gives the same output;
                  never lost, ATE < 0.15 m;
  11. bench SLAM — bench.py's stereo SLAM leg: the bench world and its
-                 172-frame walk, WindowedSlamEngine(window=4, loop closing
-                 on), 28 warm-up frames, then three passes of 48 frames,
+                 walk, WindowedSlamEngine(window=4, loop closing on), 28
+                 warm-up frames, then one pass of 48 frames (bench.py:
+                 three; cut to keep the run inside its limit),
                  each ending in flush() and a synchronize: fps per pass and
                  their median, ms per frame, keyframes per frame, ATE over
                  bench.py's first 76 frames (< 0.1127 m, the cv2 proxy's),
                  never lost, hamming_top2 launches by path;
  12. bench LOC — bench.py's stereo LOC leg: make_window_tracker(cfg, 8) on
-                 the phase-11 map over frames 28-35, 6 windows a pass
-                 (bench.py runs 24; cut to keep the run in half its limit),
+                 the phase-11 map over frames 28-35, 1 window a pass
+                 (bench.py runs 24; cut to keep the run inside its limit),
                  three passes: fps; every frame ≥ 30 map inliers, ATE over
                  the window < 0.1127 m; then one LOC window and the SLAM
                  engine's next window under torch.profiler (kernels and
@@ -61,8 +62,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  hamming_top2 launched from track_ref_kf, each of those
                  matching calls replayed with the plain version equal;
  14. bench RGB-D — bench.py's RGB-D leg: WindowedSlamEngine(window=4, loop
-                 closing on), 60 frames at 0.12 m, 12 warm-up, 48 timed
-                 ending in flush() and a synchronize: fps, keyframes per
+                 closing on), 36 frames at 0.12 m, 12 warm-up, 24 timed
+                 (bench.py: 60 and 48; cut to keep the run inside its
+                 limit) ending in flush() and a synchronize: fps, keyframes per
                  frame, ATE (< 0.15 m), never lost; the bench camera with
                  sensor=RGBD (the leg's reference YAML is not here);
  15. localization — phase 13's map in localization mode (a LoopCloser
@@ -113,7 +115,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  frames more; System(RGBD).track_ird over 6 frames of
                  phase 13's depth corridor (HPose within 0.15 m of the
                  remapped truth); tools.replay.run_synthetic_stereo at the
-                 default capacity (median and mean ms); track_ref_kf's
+                 default capacity over 12 frames (median and mean ms);
+                 track_ref_kf's
                  matching calls replayed with the plain version;
  20. async     — AsyncSlamEngine (runtime/pipeline.py: the mapping worker
                  on its own CUDA stream, loop closing on, no device given)
@@ -200,6 +203,23 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  JSON line, and its problem solved on the mesh within
                  5e-4 of one shard (its points fill every shard's block),
                  the shards' poses bit-equal;
+ 24. map scale — WindowedSlamEngine(window=4, loop closing on, no device
+                 given) at tools/scale_demo.py's full configuration: 1024
+                 keyframe slots, 131,072 points, 1000 features, its
+                 320×240 camera and local-BA sizes, over
+                 tests/test_scale_circuit.py's room and 300-frame circuit
+                 (its depth; the capacity, which sets every map tensor's
+                 width, stays full) through scale_demo.run_circuit with no
+                 flush() before the end (as that test): fps, keyframes,
+                 live points, allocated and peak memory every 50 frames;
+                 the loop-closing frame's ms; the global BA's
+                 chunks (ms, solver: CG) and, on the final map, one chunk
+                 alone and one covisibility() call (ms, peak bytes; 8 rows
+                 against the host's point sets); that test's bars: ≥ 95%
+                 tracked, ≥ 1 loop closed and its GBA merged, n_kfs ≤
+                 1024, ≥ 30 keyframes inserted, ATE < 1.5 m; every
+                 hamming_top2 matching call replayed with the plain
+                 version equal;
   9. times     — each kernel at the main path's shape (1024×1024): the
                  wrapper's host µs per call, the wrapper-inclusive and the
                  plain version's ms per call (CUDA events; the kernels
@@ -210,7 +230,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  ``host_us_by_point``).
 No profiler session of phase 20, 9 or 22 precedes a timed measurement:
 phases run in the order 1-8, 10-19, 20's corridor, orbit and rectify, 21,
-22, 23, 9's timed part, 20's profiled window, 9's device times, 22's
+22, 23, 24, 9's timed part, 20's profiled window, 9's device times, 22's
 root-shape kernel times.  (Phases 12, 16 and 18
 profile windows of their own, before phase 19.)
 Every time printed carries the card's name and power limit.  The line
@@ -224,7 +244,6 @@ import dataclasses
 import json
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -246,34 +265,17 @@ RELOC_FRAME = 2
 SHAKE_FRAME, SHAKE_YAW = 20, 0.12
 
 
-# the host renders the synthetic frames on this many threads (numpy's array
-# work releases the GIL); the frames are bit-equal to a sequential render
-RENDER_THREADS = 8
+class _Clock:
+    """Wall seconds of each stretch of main(), printed as it ends."""
 
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
 
-class _DrawnNoise:
-    """Stands in for the generator inside one render call: hands back, in
-    order, the noise arrays drawn for that call from the real generator."""
-
-    def __init__(self, arrays):
-        self._arrays = list(arrays)
-
-    def normal(self, loc, scale, size):
-        return self._arrays.pop(0)
-
-
-def render_frames(render, world, cam, poses, rng, images=2, **kw):
-    """``[render(world, cam, T, rng, 1.0, **kw) for T in poses]`` on
-    RENDER_THREADS threads.  Each call's noise (``images`` arrays: 2 for a
-    stereo pair) is drawn here from ``rng`` in the sequential order, so the
-    frames and the generator's state after are the sequential ones."""
-    shape = (cam.height, cam.width)
-    draws = [[rng.normal(0.0, 1.0, shape) for _ in range(images)]
-             for _ in poses]
-    with ThreadPoolExecutor(RENDER_THREADS) as pool:
-        return list(pool.map(
-            lambda a: render(world, cam, a[0], _DrawnNoise(a[1]), 1.0, **kw),
-            zip(poses, draws)))
+    def lap(self, what):
+        now = time.perf_counter()
+        print(f"[clock] {what} {now - self.t:.1f} s (script "
+              f"{now - self.t0:.1f} s)", flush=True)
+        self.t = now
 
 
 def phase_device():
@@ -557,14 +559,14 @@ def phase_slice(smi):
                                                      reset_launch_counts)
     from orbslam2_tpu_torch.runtime import tracking
     from orbslam2_tpu_torch.runtime.slam import SlamEngine
-    from orbslam2_tpu_torch.utils import synthetic
+    from orbslam2_tpu_torch.utils import render_pool, synthetic
 
     cfg = bench_config()
     rng = np.random.default_rng(0)
     world = synthetic.make_world(rng)
     poses_gt = shaken_trajectory()
-    frames = render_frames(synthetic.render_world_stereo, world, cfg.camera,
-                           poses_gt, rng)
+    frames = render_pool.render_frames(synthetic.render_world_stereo, world,
+                                       cfg.camera, poses_gt, rng)
     eng = SlamEngine(cfg, enable_loop_closing=False)
     if eng.device.type != "cuda":
         raise AssertionError(f"slice: SlamEngine chose {eng.device}, not "
@@ -687,14 +689,14 @@ def phase_loop(smi):
     from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
                                                      reset_launch_counts)
     from orbslam2_tpu_torch.runtime.slam import SlamEngine
-    from orbslam2_tpu_torch.utils import synthetic
+    from orbslam2_tpu_torch.utils import render_pool, synthetic
 
     cfg = bench_config()
     rng = np.random.default_rng(0)
     scene = orbit_scene(rng, z_center=ORBIT_Z)
     poses_gt = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS)
-    frames = render_frames(synthetic.render_stereo, scene, cfg.camera,
-                           poses_gt, rng)
+    frames = render_pool.render_frames(synthetic.render_stereo, scene,
+                                       cfg.camera, poses_gt, rng)
     eng = SlamEngine(cfg)            # loop closing on, the card
     lc = eng.loop_closer
     layers = {name: [] for name in LOOP_LAYERS + ("gba_chunk", "gba_merge")}
@@ -918,10 +920,13 @@ def live_reloc_call(eng, attempt, args, state):
 
 
 # phases 10-12: the bench.py stereo legs (bench.py:61-64, 86-196)
-BENCH_FRAMES, BENCH_WARMUP, BENCH_PASS = 172, 28, 48
+# bench.py runs three stereo passes and 24 LOC windows a pass; the script
+# runs fewer, to stay well inside its time limit
+BENCH_WARMUP, BENCH_PASS, BENCH_PASSES = 28, 48, 1
+BENCH_FRAMES = BENCH_WARMUP + BENCH_PASSES * BENCH_PASS
 BENCH_ORACLE_FRAMES = 76       # the span of bench.py's ATE (warm-up + 1 pass)
 CV2_PROXY_ATE = 0.1127         # the cv2 proxy's ATE there (BENCH_r05)
-LOC_WINDOW, LOC_WINDOWS = 8, 6      # bench.py: 24 windows a pass
+LOC_WINDOW, LOC_WINDOWS = 8, 1      # bench.py: 24 windows a pass
 
 
 def _record_matches(*sites):
@@ -1044,12 +1049,12 @@ def _replay_plain(records):
 def phase_bench_slam(smi):
     """Phase 11: bench.py's stereo SLAM leg on the port (bench.py:86-121):
     WindowedSlamEngine(window=4), loop closing on, 28 warm-up frames,
-    then three passes of 48 frames, each ending in flush() and a
-    synchronize."""
+    then BENCH_PASSES passes of 48 frames (bench.py runs three), each
+    ending in flush() and a synchronize."""
     from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
                                                      reset_launch_counts)
     from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
-    from orbslam2_tpu_torch.utils import synthetic
+    from orbslam2_tpu_torch.utils import render_pool, synthetic
 
     cfg = bench_config()
     rng = np.random.default_rng(0)
@@ -1057,8 +1062,8 @@ def phase_bench_slam(smi):
     # BENCH_FRAMES for the leg, then one window more for phase 12's profile
     poses_gt = synthetic.straight_trajectory(BENCH_FRAMES + 4, step=0.25)
     t0 = time.perf_counter()
-    frames = render_frames(synthetic.render_world_stereo, world, cfg.camera,
-                           poses_gt, rng)
+    frames = render_pool.render_frames(synthetic.render_world_stereo, world,
+                                       cfg.camera, poses_gt, rng)
     render_s = time.perf_counter() - t0
     eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
     reset_launch_counts()              # the bench SLAM leg's count
@@ -1068,7 +1073,7 @@ def phase_bench_slam(smi):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     pass_fps, kf_counts, start = [], [], BENCH_WARMUP
-    for _ in range(3):
+    for _ in range(BENCH_PASSES):
         kf_before = eng.stats["kf_inserted"]
         t0 = time.perf_counter()
         for i in range(start, start + BENCH_PASS):
@@ -1106,13 +1111,12 @@ def phase_bench_slam(smi):
 def phase_bench_loc(eng, frames, poses_gt, smi):
     """Phase 12: bench.py's stereo LOC leg (bench.py:160-196):
     make_window_tracker(cfg, 8) on the phase-11 map over frames 28-35,
-    6 windows a pass (bench.py runs 24), three passes.  Each window
-    starts from the SLAM
-    estimate of frames 27 and 26 and the map points of frame 27's
-    reference keyframe (bench.py chains windows over one repeated buffer,
-    which sends the tracker 1.75 m back at every window boundary).  Last,
-    one LOC window and the SLAM engine's next window under
-    torch.profiler: kernels and device ms per frame."""
+    LOC_WINDOWS windows a pass (bench.py runs 24), three passes.  Each
+    window starts from the SLAM estimate of frames 27 and 26 and the map
+    points of frame 27's reference keyframe (bench.py chains windows over
+    one repeated buffer, which sends the tracker 1.75 m back at every
+    window boundary).  Last, one LOC window and the SLAM engine's next
+    window under torch.profiler: kernels and device ms per frame."""
     from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
                                                      reset_launch_counts)
     from orbslam2_tpu_torch.runtime import streaming
@@ -1180,7 +1184,7 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
 
 # phases 13-16: RGB-D, localization mode, the GBA solvers
 LOC_NEXT = 12                  # corridor frames tracked in localization mode
-RGBD_FRAMES, RGBD_WARMUP, RGBD_STEP = 60, 12, 0.12   # bench.py:246-256
+RGBD_FRAMES, RGBD_WARMUP, RGBD_STEP = 36, 12, 0.12   # bench.py: 60, 12
 GBA_FRAMES = 20
 
 
@@ -1194,10 +1198,10 @@ def rgbd_config(capacity=None):
 
 
 def render_rgbd(world, cam, poses, rng):
-    from orbslam2_tpu_torch.utils import synthetic
+    from orbslam2_tpu_torch.utils import render_pool, synthetic
 
-    return render_frames(synthetic.render_world, world, cam, poses, rng,
-                         images=1, with_depth=True)
+    return render_pool.render_frames(synthetic.render_world, world, cam,
+                                     poses, rng, images=1, with_depth=True)
 
 
 def phase_rgbd_slice(smi):
@@ -1256,9 +1260,9 @@ def phase_rgbd_slice(smi):
 
 def phase_bench_rgbd(smi):
     """Phase 14: bench.py's RGB-D leg (bench.py:233-262) on the port:
-    WindowedSlamEngine(window=4, loop closing on) over 60 frames of
-    straight_trajectory(60, step=0.12), 12 warm-up frames, then 48 timed
-    frames ending in flush() and a synchronize.  The leg's YAML
+    WindowedSlamEngine(window=4, loop closing on) over RGBD_FRAMES frames
+    at step 0.12, 12 warm-up frames, then the rest timed (bench.py: 60
+    frames, 48 timed) ending in flush() and a synchronize.  The leg's YAML
     (Config/RealSense-D435i-IRD.yaml of the reference) is not in the
     repository, so the bench camera and widths run with sensor=RGBD; the
     world is the bench's, made from a fresh default_rng(0)."""
@@ -1612,7 +1616,7 @@ def phase_mono_slice(smi):
     from orbslam2_tpu_torch.ops import initializer
     from orbslam2_tpu_torch.runtime import tracking
     from orbslam2_tpu_torch.runtime.slam import SlamEngine
-    from orbslam2_tpu_torch.utils import synthetic
+    from orbslam2_tpu_torch.utils import render_pool, synthetic
 
     cfg = mono_config(n_features=2000)
     rng = np.random.default_rng(0)
@@ -1620,9 +1624,8 @@ def phase_mono_slice(smi):
                                  z_near=2.5)
     poses_gt = [synthetic.look_ahead_pose(np.array([0.3 * i, 0.0, 0.1 * i]))
                 for i in range(MONO_FRAMES)]
-    frames = [_u8(f) for f in render_frames(synthetic.render, scene,
-                                            cfg.camera, poses_gt, rng,
-                                            images=1)]
+    frames = [_u8(f) for f in render_pool.render_frames(
+        synthetic.render, scene, cfg.camera, poses_gt, rng, images=1)]
     eng = SlamEngine(cfg, enable_loop_closing=False)
     if eng.device.type != "cuda":
         raise AssertionError(f"mono: SlamEngine chose {eng.device}")
@@ -1718,7 +1721,7 @@ def phase_bench_mono(smi):
     from orbslam2_tpu_torch.ops import hamming_top2 as ht2
     from orbslam2_tpu_torch.runtime import tracking
     from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
-    from orbslam2_tpu_torch.utils import synthetic
+    from orbslam2_tpu_torch.utils import render_pool, synthetic
 
     cfg = mono_config()
     rng = np.random.default_rng(0)
@@ -1728,9 +1731,8 @@ def phase_bench_mono(smi):
     poses_gt = [synthetic.look_ahead_pose(np.array([0.18 * i, 0.0, 0.04 * i]))
                 for i in range(n_m + 4)]
     t0 = time.perf_counter()
-    frames = [_u8(f) for f in render_frames(synthetic.render_world, world,
-                                            cfg.camera, poses_gt, rng,
-                                            images=1)]
+    frames = [_u8(f) for f in render_pool.render_frames(
+        synthetic.render_world, world, cfg.camera, poses_gt, rng, images=1)]
     render_s = time.perf_counter() - t0
     eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
     if eng.device.type != "cuda":
@@ -1796,7 +1798,7 @@ def phase_bench_mono(smi):
 
 # phase 19: the System facade (orbslam2_tpu_torch/runtime/system.py)
 SYS_FRAMES, SYS_RELOC_FRAME = 24, 8
-SYS_CALIB_FRAMES, IRD_FRAMES, REPLAY_FRAMES = 4, 6, 24
+SYS_CALIB_FRAMES, IRD_FRAMES, REPLAY_FRAMES = 4, 6, 12
 IRD_BAR = 0.15                 # HPose world position against the truth, m
 
 
@@ -2308,14 +2310,14 @@ def phase_async_orbit(smi, frames, poses_gt, scene):
     its global BA is merged there or at shutdown."""
     from orbslam2_tpu_torch.ops import hamming_top2 as ht2
     from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
-    from orbslam2_tpu_torch.utils import synthetic
+    from orbslam2_tpu_torch.utils import render_pool, synthetic
 
     cfg = bench_config()
     more = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS,
                          stop=ORBIT_FRAMES + ASYNC_ORBIT_EXTRA)[len(frames):]
     rng = np.random.default_rng(20)
-    frames = frames + render_frames(synthetic.render_stereo, scene,
-                                    cfg.camera, more, rng)
+    frames = frames + render_pool.render_frames(synthetic.render_stereo,
+                                                scene, cfg.camera, more, rng)
     poses_gt = poses_gt + more
     eng = AsyncSlamEngine(cfg)
     log = _spy_async(eng)
@@ -3337,24 +3339,193 @@ def phase_mesh(smi, case, map_npz):
                      "phase_s": phase_s}
 
 
+# phase 24: tools/scale_demo.py's configuration (1024 keyframe slots,
+# 131,072 points) over tests/test_scale_circuit.py's scene, cut in depth
+SCALE_FRAMES, SCALE_LOG_EVERY = 300, 50
+SCALE_SITES = ("match_for_sim3", "reloc_attempt", "track_ref_kf",
+               "window/track_ref_kf")
+
+
+def phase_scale(smi):
+    """Phase 24: the map-scale circuit.  WindowedSlamEngine(window=4, loop
+    closing on, no device given) at tools/scale_demo.py's full
+    configuration (1024 keyframe slots, 131,072 points, 1000 features, its
+    camera and local-BA sizes) over tests/test_scale_circuit.py's room
+    and its 300-frame, 1.15-lap circuit (default_rng(0)), through
+    scale_demo.run_circuit, a row every SCALE_LOG_EVERY frames, each row
+    ending in a synchronize but no flush(), as test_scale_circuit.py
+    drives the engine (a flush tracks the partial window frame by frame,
+    and the next window then predicts from an older pose: ROADMAP Queue
+    3): fps, keyframes, live points, allocated and chunk-peak memory; the
+    loop-closing frame's ms; every global-BA chunk (wall ms on the GBA
+    thread, tracking beside it; the solver of each bundle_adjust, which
+    must be CG); then, on the final map, one robust GBA chunk alone and
+    one covisibility() call (CUDA-event ms, peak bytes).  Bars
+    (test_scale_circuit.py's): ≥ 95% of frames tracked, ≥ 1 loop closed
+    and its GBA merged, n_kfs ≤ 1024, ≥ 30 keyframes inserted, ATE <
+    1.5 m; every hamming_top2 matching call of the run replayed with the
+    plain version equal.  Returns the launches by site."""
+    import threading
+
+    from orbslam2_tpu_torch.models import map_state as M
+    from orbslam2_tpu_torch.ops import bundle
+    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
+    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
+    from orbslam2_tpu_torch.tools import scale_demo as sd
+    from orbslam2_tpu_torch.utils import render_pool, synthetic
+
+    t_phase = time.perf_counter()
+    cfg = sd.scale_config()
+    rng = np.random.default_rng(0)
+    world, poses = sd.small_circuit(rng, SCALE_FRAMES)
+    t0 = time.perf_counter()
+    frames = render_pool.render_frames(synthetic.render_world_stereo, world,
+                                       cfg.camera, poses, rng)
+    render_s = time.perf_counter() - t0
+    eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"scale: the engine chose {eng.device}")
+    mgr = eng.loop_closer.gba
+    chunks, solvers = [], []
+    f_chunk, ba = mgr.f_chunk, bundle.bundle_adjust
+
+    def timed_chunk(ms, obs_w, use_huber):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = f_chunk(ms, obs_w, use_huber)
+        torch.cuda.synchronize()
+        chunks.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def recording_ba(*args, **kwargs):
+        if threading.current_thread().name == "global-ba":
+            solvers.append(kwargs.get("solver"))
+        return ba(*args, **kwargs)
+
+    mgr.f_chunk, bundle.bundle_adjust = timed_chunk, recording_ba
+    records, restore = _record_matches(*SCALE_SITES)
+
+    def log(r):
+        print(f"[scale] frames {r['frames']}: {r['fps']:.2f} fps, n_kfs "
+              f"{r['n_kfs']}, live points {r['live_points']}, KFs inserted "
+              f"{r['kf_inserted']} / culled {r['kf_culled']}, loops "
+              f"{r['loops']}, allocated {r['mem_MB']:.1f} MB, chunk peak "
+              f"{r['peak_alloc_MB']:.1f} MB ({smi})", flush=True)
+
+    ht2.reset_launch_counts()          # the scale path's count
+    try:
+        rows, summary, flog = sd.run_circuit(eng, frames, poses,
+                                             SCALE_LOG_EVERY, log,
+                                             flush=False)
+    finally:
+        restore()
+        mgr.f_chunk, bundle.bundle_adjust = f_chunk, ba
+    by_site = dict(ht2.hamming_top2.launches_by_site)
+    same = _replay_plain(records)
+    del frames
+    loop_ms = {i: round(flog["frame_ms"][i], 1) for i in flog["loop_frames"]}
+
+    ms = eng.ms
+    K, N = ms.K, ms.N
+
+    def alone(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b), torch.cuda.max_memory_allocated() - base
+
+    W, cov_ms, cov_bytes = alone(lambda: M.covisibility(ms))
+    # eight live rows against point sets on the host
+    live = torch.nonzero(ms.kf_valid).flatten().tolist()
+    ok, mp, Wh = (M.kf_obs_ok(ms).cpu().numpy(), ms.kf_mp.cpu().numpy(),
+                  W.cpu().numpy())
+    pts = {k: set(mp[k][ok[k]].tolist()) for k in live}
+    cov_ok = (torch.equal(W, W.T) and int(W.diagonal().abs().sum()) == 0
+              and all(Wh[i, j] == (len(pts[i] & pts[j]) if i != j else 0)
+                      for i in live[:8] for j in live))
+    obs = torch.ones(K * N, dtype=torch.bool, device=ms.kf_xy.device)
+    n_solves = len(solvers)
+    (gms, _), gba_ms, gba_bytes = alone(lambda: f_chunk(ms, obs, True))
+    gba_ok = bool(torch.isfinite(gms.kf_pose).all()
+                  and torch.isfinite(gms.mp_pos).all())
+    phase_s = time.perf_counter() - t_phase
+    print(f"[scale] {SCALE_FRAMES} frames of the circuit at {K} KF slots, "
+          f"{ms.P} point slots, {K * N} observation rows (rendered in "
+          f"{render_s:.1f} s): {summary['overall_fps']:.3f} fps = "
+          f"{1e3 / summary['overall_fps']:.1f} ms a frame; loop-closing "
+          f"frames and their ms {loop_ms}; tracked "
+          f"{summary['tracked_frames']}, loops {summary['loops_closed']}, "
+          f"KFs inserted {eng.stats['kf_inserted']}, culled "
+          f"{eng.stats['kf_culled']}, evicted {summary['kf_evicted']}, "
+          f"n_kfs {eng.n_kfs} (peak {summary['peak_kfs']}), live points "
+          f"{eng.n_live_points}, ATE {summary['ate_m']:.4f} m; GBA "
+          f"{mgr.stats} in {len(chunks)} chunks of "
+          f"{[round(c, 1) for c in chunks]} ms (GBA thread, tracking "
+          f"beside it), solvers {sorted(set(map(str, solvers)))} "
+          f"({n_solves} calls), drain {summary['gba_drain_s']:.2f} s; peak "
+          f"allocated {summary['peak_alloc_MB']:.1f} MB; one robust chunk "
+          f"alone on the final map {gba_ms:.1f} ms, peak +"
+          f"{gba_bytes / 2 ** 30:.3f} GiB; covisibility() {cov_ms:.1f} ms, "
+          f"peak +{cov_bytes / 2 ** 30:.3f} GiB, symmetric with a zero "
+          f"diagonal and 8 rows equal to the host's point sets: {cov_ok}; "
+          f"hamming_top2 launches by path {by_site}, {len(records)} "
+          f"matching calls replayed with the plain version: equal {same}; "
+          f"phase 24 {phase_s:.1f} s ({smi})", flush=True)
+    n = SCALE_FRAMES
+    if not (summary["tracked_frames"] >= 0.95 * n
+            and summary["loops_closed"] >= 1 and mgr.stats["merged"] >= 1
+            and eng.n_kfs <= K and eng.stats["kf_inserted"] >= 30
+            and summary["ate_m"] < 1.5):
+        raise AssertionError(f"scale: tracked {summary['tracked_frames']} "
+                             f"of {n}, loops {summary['loops_closed']}, GBA "
+                             f"{mgr.stats}, n_kfs {eng.n_kfs}, KFs inserted "
+                             f"{eng.stats['kf_inserted']}, ATE "
+                             f"{summary['ate_m']}")
+    if not solvers or any(s != "cg" for s in solvers):
+        raise AssertionError(f"scale: the GBA at {K} slots took {solvers}")
+    if not (cov_ok and gba_ok):
+        raise AssertionError(f"scale: covisibility {cov_ok}, the chunk "
+                             f"alone finite {gba_ok}")
+    if not records or sum(by_site.values()) < 1:
+        raise AssertionError("scale: the path never launched hamming_top2")
+    if not same:
+        raise AssertionError("scale: kernel and plain differ on the "
+                             "circuit's matching calls")
+    return by_site, {"fps": summary["overall_fps"], "ate_m":
+                     summary["ate_m"], "gba_ms": gba_ms,
+                     "cov_ms": cov_ms, "phase_s": phase_s}
+
+
 def main():
+    clock = _Clock()
     smi = phase_device()
     phase_build(smi)
     max_err, main_inputs, early_times = phase_kernels(smi)
+    clock.lap("phases 1-3")
     (eng, engine_launches, slice_sites, corridor,
      slice_ms) = phase_slice(smi)
     phase_live_call(eng, engine_launches)
     del eng
+    clock.lap("phases 4-5")
     eng, poses_gt, scene, rng, loop_sites, orbit = phase_loop(smi)
     orbit_gt, orbit_world = poses_gt, scene
     res = phase_live_loop_call(eng)
     phase_warm_loop_layers(eng, res, smi)
     reloc_sites = phase_reloc(eng, poses_gt, scene, rng, smi)
     del eng
+    clock.lap("phases 6-8")
     windowed_sites = phase_windowed_fallback(smi, corridor)
+    clock.lap("phase 10")
     eng, frames, poses_gt, bench_sites, slam = phase_bench_slam(smi)
     loc_sites, loc = phase_bench_loc(eng, frames, poses_gt, smi)
     del eng, frames
+    clock.lap("phases 11-12")
     (eng, world, rng, poses_gt, rgbd_sites,
      rgbd_frames) = phase_rgbd_slice(smi)
     weng, wframes, wposes, bench_rgbd_sites, rgbd = phase_bench_rgbd(smi)
@@ -3362,12 +3533,17 @@ def main():
         eng, world, rng, poses_gt,
         {"eng": weng, "frames": wframes, "poses": wposes}, smi)
     del eng, weng, wframes
+    clock.lap("phases 13-15")
     gba_times = phase_gba_solvers(smi)
     gba_case = gba_times.pop("case")
+    clock.lap("phase 16")
     mono_sites, mono = phase_mono_slice(smi)
+    clock.lap("phase 17")
     bench_mono_sites, bench_mono = phase_bench_mono(smi)
+    clock.lap("phase 18")
     system_sites, system = phase_system(smi, corridor[:SYS_FRAMES])
     map_npz = system.pop("map_npz")
+    clock.lap("phase 19")
     # every timed measurement before the profiled windows of phases 20
     # and 9
     async_sites, asyn = phase_async(smi, corridor, slice_ms)
@@ -3375,19 +3551,26 @@ def main():
                                      orbit_world).items():
         async_sites[site] = async_sites.get(site, 0) + n
     del orbit, orbit_world
+    clock.lap("phase 20")
     rect = phase_rectify(smi)
     driver_sites, drivers = phase_drivers(smi, corridor, rgbd_frames,
                                           slice_ms)
     del rgbd_frames
+    clock.lap("rectify and phase 21")
     vocab_sites, vocab, vocab_root = phase_vocabulary(smi)
+    clock.lap("phase 22")
     mesh_sites, mesh = phase_mesh(smi, gba_case, map_npz)
     del gba_case, map_npz
+    clock.lap("phase 23")
+    scale_sites, scale = phase_scale(smi)
+    clock.lap("phase 24")
     k = phase_kernel_times(smi, main_inputs)
     asyn["both_ms"] = phase_async_profiled(smi, corridor)
     del corridor
     k = phase_kernel_device(smi, main_inputs, k, early_times)
     k["vocab_root"] = phase_vocab_kernel_device(smi, vocab_root)
     del vocab_root
+    clock.lap("kernel times (phase 9) and the profiled async run")
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
                "reloc (phase 8)": reloc_sites,
                "windowed (phase 10)": windowed_sites,
@@ -3402,7 +3585,8 @@ def main():
                "async (phase 20)": async_sites,
                "drivers (phase 21)": driver_sites,
                "vocabulary (phase 22)": vocab_sites,
-               "mesh (phase 23)": mesh_sites}
+               "mesh (phase 23)": mesh_sites,
+               "scale (phase 24)": scale_sites}
     print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
           f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
@@ -3438,7 +3622,11 @@ def main():
           f"({mesh['shuffled_ms']:.1f} ms with the slots shuffled), the "
           f"manager {mesh['mgr_ms']:.1f} ms against {mesh['plain_ms']:.1f} "
           f"unsharded, scaling efficiency {mesh['eff_pct']:.1f}% "
-          f"(phase 23 {mesh['phase_s']:.1f} s) ({smi})", flush=True)
+          f"(phase 23 {mesh['phase_s']:.1f} s); map scale at 1024 KF "
+          f"slots: {scale['fps']:.3f} fps, ATE {scale['ate_m']:.4f} m, a "
+          f"GBA chunk {scale['gba_ms']:.1f} ms, covisibility "
+          f"{scale['cov_ms']:.1f} ms (phase 24 {scale['phase_s']:.1f} s) "
+          f"({smi})", flush=True)
     print(json.dumps({"kernels": [{
         "name": "hamming_top2", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/hamming_top2.cu",

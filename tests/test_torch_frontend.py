@@ -5,9 +5,11 @@ comparison; only the whole-frontend test compares end to end.
 
 Tolerances: pyramid and blur 1e-4 (gray levels 0..255, float32 resize
 sums in another order); FAST scores, NMS, keypoint selection, BRIEF bits
-and the stereo match mask exact; angles 1e-4 rad (31×31 moment sums in
-another order); stereo u_right 1e-3 px and depth 1e-4 relative;
-whole-frontend keypoint rows ≥ 99% identical.
+and the stereo match mask exact; angles: each package's within the
+float32 summation bound of a float64 evaluation of the same 961 moment
+terms (or 1e-4 rad where that bound is smaller; see ``_angle_tolerance``);
+stereo u_right 1e-3 px and depth 1e-4 relative; whole-frontend keypoint
+rows ≥ 99% identical.
 """
 
 import dataclasses
@@ -90,6 +92,35 @@ def test_fast_nms_select_exact_on_jax_level(jax_pyramid, level):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
+def _angle_tolerance(img, xy):
+    """(float64 IC angles, allowed float32 error) at the keypoints ``xy``.
+
+    Both packages sum the 961 moment terms p·k (pixel times integer
+    offset) in float32, in an order that depends on the library and the
+    host CPU's vector path.  In any order the sum is off the exact one by
+    at most γ₉₆₁·Σ|p·k| (γₙ = n·u / (1 − n·u), u = 2⁻²⁴: one rounding of
+    the product and at most 960 of the additions on each term), so the
+    moment vector m is off by at most δ = γ₉₆₁·|(Σ|p·kx|, Σ|p·ky|)| and its
+    angle by asin(δ / |m|).  Where that bound is below 1e-4 rad the bar
+    stays 1e-4 (atan2's own rounding is ~1e-7)."""
+    r = 15
+    h, w = img.shape
+    cx = np.clip(xy[:, 0].astype(np.int64), r, w - 1 - r)
+    cy = np.clip(xy[:, 1].astype(np.int64), r, h - 1 - r)
+    off = np.arange(-r, r + 1)
+    patches = img.astype(np.float64)[(cy[:, None] + off)[:, :, None],
+                                     (cx[:, None] + off)[:, None, :]]
+    k = je._moment_kernels().astype(np.float64)       # [961, 2], integers
+    p = patches.reshape(len(xy), -1)
+    m = p @ k
+    s = np.abs(p) @ np.abs(k)
+    n, u = 961, 2.0 ** -24
+    gamma = n * u / (1 - n * u)
+    rel = gamma * np.hypot(s[:, 0], s[:, 1]) / np.hypot(m[:, 0], m[:, 1])
+    bound = np.arcsin(np.minimum(rel, 1.0))
+    return np.arctan2(m[:, 1], m[:, 0]), np.maximum(bound, 1e-4)
+
+
 @pytest.mark.parametrize("level", [0, 2, 5])
 def test_angles_and_descriptors_on_jax_level(jax_pyramid, level):
     img = jax_pyramid[level]
@@ -101,8 +132,11 @@ def test_angles_and_descriptors_on_jax_level(jax_pyramid, level):
     ja = np.asarray(je.keypoint_angles(jnp.asarray(img), xy))
     ta = te.keypoint_angles(to_tensor(img),
                             to_tensor(np.asarray(xy))).numpy()
-    dang = np.abs(np.angle(np.exp(1j * (ja - ta))))
-    assert dang[valid].max() < 1e-4
+    exact, tol = _angle_tolerance(img, np.asarray(xy))
+    for name, a in (("jax", ja), ("port", ta)):
+        err = np.abs(np.angle(np.exp(1j * (a - exact))))
+        bad = valid & ~(err <= tol)
+        assert not bad.any(), (name, np.nonzero(bad)[0], err[bad], tol[bad])
     blurred = np.asarray(ji.gaussian_blur(jnp.asarray(img), 7, 2.0))
     jd = np.asarray(je._descriptors(jnp.asarray(blurred), xy,
                                     jnp.asarray(ja)))

@@ -24,7 +24,9 @@ Also, with jax unimportable, a small vocabulary harvest and build, and
 (``test_vocabulary_builds_without_jax``); and ``parallel/*`` with
 ``tools/scaling.py``: a sharded bundle adjustment, a ``LoopCloser`` and a
 ``GbaManager`` on a mesh of CPU shards, and ``measure_scaling`` at a
-small size (``test_parallel_runs_without_jax``).
+small size (``test_parallel_runs_without_jax``); and the map-scale
+circuit's module and the trajectory tool
+(``test_scale_and_plot_tools_run_without_jax``).
 And: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -354,6 +356,36 @@ print("PARALLEL_NOJAX_OK")
 """
 
 
+_TOOLS_CHILD = r"""
+import os, sys, tempfile
+sys.modules["jax"] = None            # any `import jax` now raises
+import numpy as np
+from orbslam2_tpu_torch.tools import plot_trajectory, scale_demo
+from orbslam2_tpu_torch.utils import trajectory
+cfg = scale_demo.scale_config()
+assert cfg.capacity.max_keyframes == 1024
+d = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+gt = np.cumsum(rng.normal(0, 0.2, (40, 3)), axis=0)
+ts = 0.1 * np.arange(40)
+poses = []
+for p in gt:
+    T = np.eye(4)
+    T[:3, 3] = -p
+    poses.append(T)
+trajectory.save_tum(os.path.join(d, "gt.txt"), ts, poses)
+trajectory.save_tum(os.path.join(d, "est.txt"), ts + 0.005, poses)
+os.chdir(d)
+plot_trajectory.main(["est.txt", "gt.txt", "--align", "--out", "t.png"])
+assert os.path.exists("t.png") or os.path.exists("t.ply"), os.listdir(d)
+bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
+             or m.startswith("orbslam2_tpu.")
+             or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
+assert not bad, bad
+print("TOOLS_NOJAX_OK")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
@@ -400,6 +432,18 @@ def test_parallel_runs_without_jax():
                          timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "PARALLEL_NOJAX_OK" in out.stdout
+
+
+def test_scale_and_plot_tools_run_without_jax():
+    """With jax unimportable: the map-scale circuit's module imports and
+    builds its configuration, and the trajectory tool scores and plots
+    (or writes a PLY of) two TUM files written by ``utils/trajectory``."""
+    out = subprocess.run([sys.executable, "-c", _TOOLS_CHILD], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "TOOLS_NOJAX_OK" in out.stdout
+    assert "ATE RMSE: 0.0000 m over 40 matched poses" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -10,8 +10,11 @@ Tolerances:
     depth; the virtual right coordinate
     ``x − bf/d`` within 1e-4 px (XLA may form the quotient another way);
   * the RGB-D frontend on a rendered 640×480 frame (uint8 gray, float32
-    depth): keypoints, levels, validity, descriptors and depths exact,
-    ``ur`` 1e-4 px, angles 1e-4 rad;
+    depth), the port handed JAX's IC angles (tests/jax_angles.py: their
+    float32 sums round by the host CPU on resized levels; the port's own
+    angles are held in test_torch_frontend.py): keypoints, levels,
+    validity, descriptors and depths exact, ``ur`` 1e-4 px, angles
+    within 1e-4 rad of JAX's (met trivially under the handover);
   * ``SlamEngine`` (here) and ``WindowedSlamEngine(window=4)``
     (test_torch_rgbd_windowed.py, which reuses this file's sequence and
     bars), loop closing off, 12 frames of the corridor at 0.4 m a frame, 400 features, both
@@ -40,6 +43,8 @@ from orbslam2_tpu_torch.models import frame as tframe
 from orbslam2_tpu_torch.ops import extractor as te
 from orbslam2_tpu_torch.ops import stereo as ts
 from orbslam2_tpu_torch.runtime.slam import SlamEngine as TorchEngine
+
+from jax_angles import hand_over as hand_over_jax_angles
 
 torch.set_num_threads(2)
 
@@ -109,8 +114,9 @@ def test_depth_from_rgbd_exact():
     assert (tm.depth.numpy() == -1).any() and (tm.depth.numpy() > 0).any()
 
 
-def test_rgbd_frontend_exact(sequence):
+def test_rgbd_frontend_exact(sequence, monkeypatch):
     _, frames = sequence
+    hand_over_jax_angles(monkeypatch)
     g, d = frames[3]
     g32 = g.astype(np.float32)
     jfd = jframe.make_frontend_rgbd(JCFG)(jnp.asarray(g32), jnp.asarray(d))

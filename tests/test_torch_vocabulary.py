@@ -22,12 +22,12 @@ one FMA or as two rounded products; the 961 moment terms in Eigen's
 blocked order).  The port sums in torch's order, so on the harvest's
 non-integer images (gamma, vignette, blur, noise) a pyramid pixel or an
 angle can differ by an ULP, and such an ULP can move a FAST comparison or
-the rounding of a steered BRIEF point.  (On integer images every partial
-sum is an integer below 2^24, hence exact in any order.)  The harvest
-tests therefore hand the port JAX's pyramid (the small test) and also
-JAX's angles (the full harvest, where a steered point meets that
-rounding), and hold everything else bit-exact: FAST, NMS, selection,
-blur, BRIEF, the valid mask, the views' order, renders and draws.
+the rounding of a steered BRIEF point.  (The angle's sums round on every
+resized level, integer frames included: only level 0 of an integer
+image sums exactly.)  The harvest tests therefore hand the port JAX's
+pyramid and JAX's angles (tests/jax_angles.py), and hold everything
+else bit-exact: FAST, NMS, selection, blur, BRIEF, the valid mask, the
+views' order, renders and draws.
 
 JAX's own harvest runs its extractor eagerly, whose first call spends ~2
 minutes compiling op by op on a CPU; the small test runs the same
@@ -57,6 +57,8 @@ from orbslam2_tpu_torch.ops import extractor as text
 from orbslam2_tpu_torch.ops import hamming_top2 as tk
 from orbslam2_tpu_torch.runtime.slam import SlamEngine
 from orbslam2_tpu_torch.utils import synthetic
+
+from jax_angles import with_jax_angles
 
 torch.set_num_threads(2)
 
@@ -222,17 +224,6 @@ def _with_jax_pyramid(img, n_levels, scale_factor):
                                   scale_factor)]
 
 
-_jax_angles = jax.jit(jext.keypoint_angles)
-
-
-def _with_jax_angles(level_img, xy):
-    """The port's ``keypoint_angles`` replaced by JAX's on the same level
-    and keypoints."""
-    return torch.from_numpy(np.array(_jax_angles(
-        jnp.asarray(level_img.cpu().numpy()),
-        jnp.asarray(xy.cpu().numpy().astype(np.int32))))).to(xy.device)
-
-
 def _one_raster_bank():
     return [np.asarray(synthetic._make_texture(np.random.default_rng(5),
                                                256))]
@@ -245,6 +236,7 @@ def test_small_harvest_matches_jax(monkeypatch):
         monkeypatch.setattr(mod, "_real_textures", _one_raster_bank)
     monkeypatch.setattr(jext, "extract", _jax_extract)
     monkeypatch.setattr(tvoc.image_ops, "build_pyramid", _with_jax_pyramid)
+    monkeypatch.setattr(text, "keypoint_angles", with_jax_angles)
     want = jvoc.harvest_training_descriptors(n_worlds=1, views_per_world=1)
     got = tvoc.harvest_training_descriptors(n_worlds=1, views_per_world=1,
                                             device="cpu")
@@ -338,7 +330,7 @@ def test_default_harvest_and_tree_match_jax(monkeypatch):
     every level and in idf."""
     want = jvoc.harvest_training_descriptors()
     monkeypatch.setattr(tvoc.image_ops, "build_pyramid", _with_jax_pyramid)
-    monkeypatch.setattr(text, "keypoint_angles", _with_jax_angles)
+    monkeypatch.setattr(text, "keypoint_angles", with_jax_angles)
     got = tvoc.harvest_training_descriptors(device="cpu")
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     _assert_voc_equal(tvoc.build_vocabulary(got, k=10, levels=4,

@@ -10,13 +10,19 @@ Parity, on the CPU at 640×480, 400 features, 16 keyframes, 4096 points:
     in-window TrackReferenceKeyFrame fallback and keep its re-run:
     summaries' integer fields, associations, inlier masks and counters
     identical; poses within 1e-4 (float32 pose optimisation, other
-    summation order; 7e-6 seen);
+    summation order; 7e-6 seen); the port is handed JAX's IC angles
+    (tests/jax_angles.py: the float32 moment sums round by the host CPU,
+    and a resized level's ULP flipped one descriptor bit), and the
+    frames' descriptors are held bit-exact;
   * one window of ``streaming.make_window_tracker`` on the same map:
     same tolerances;
   * 12 frames through both ``WindowedSlamEngine(window=4)``, loop closing
     off, ``_mapper_idle`` patched to True on both (whether a device
     program has finished is timing; ADVICE.md r5): neither LOST, keyframe
-    counts within ±1, ATE < 0.05 m and within 0.01 m of the JAX ATE.
+    counts within ±1, ATE < 0.05 m and within 0.01 m of the JAX ATE;
+    after their closing ``flush()``, the next window's stale
+    constant-velocity prediction the same in both (centres within
+    0.01 m).
 
 The scripted tests replace the window tracker and the mapping step with
 stand-ins and pin the rules the per-frame engine does not have:
@@ -47,6 +53,8 @@ from orbslam2_tpu_torch.runtime import windowed as twindowed
 from orbslam2_tpu_torch.runtime.slam import SlamEngine as TorchSlamEngine
 from orbslam2_tpu_torch.runtime.windowed import (SlamWindowOut,
                                                  WindowedSlamEngine)
+
+from jax_angles import hand_over as hand_over_jax_angles
 
 torch.set_num_threads(2)
 
@@ -163,6 +171,7 @@ def test_window_tracker_matches_jax_with_in_window_fallback(
         return fns._replace(track_ref_kf=track_ref_kf)
 
     monkeypatch.setattr(ttracking, "make_tracking_fns", recording_fns)
+    hand_over_jax_angles(monkeypatch)
     tracker = twindowed.make_slam_window_tracker(TCFG, 4)
     tout = tracker(_port_map(jax_engine), _pairs(jolted), to_tensor(sT),
                    to_tensor(assoc0), to_tensor(inl0), ref_kf)
@@ -205,13 +214,23 @@ def test_streaming_tracker_matches_jax(corridor, jax_engine):
                                atol=1e-4, rtol=0)
 
 
-def test_windowed_engine_tracks_like_jax_engine(corridor, jax_engine):
-    poses, frames, _ = corridor
-    teng = WindowedSlamEngine(TCFG, enable_loop_closing=False, device="cpu",
-                              window=4)
-    teng._mapper_idle = lambda: True
+@pytest.fixture(scope="module")
+def port_engine(corridor):
+    """The port's engine over the JAX fixture's frames, ended as it is."""
+    _, frames, _ = corridor
+    eng = WindowedSlamEngine(TCFG, enable_loop_closing=False, device="cpu",
+                             window=4)
+    eng._mapper_idle = lambda: True
     for i in range(N_ENGINE):
-        teng.track_stereo(*frames[i], 0.1 * i)
+        eng.track_stereo(*frames[i], 0.1 * i)
+    eng.flush()
+    return eng
+
+
+def test_windowed_engine_tracks_like_jax_engine(corridor, jax_engine,
+                                                port_engine):
+    poses, _, _ = corridor
+    teng = port_engine
     t_poses = teng.frame_poses()
     assert teng.state == jax_engine.state == 2
     j_ate, jn = _ate(jax_engine.frame_poses(), poses[:N_ENGINE])
@@ -222,6 +241,39 @@ def test_windowed_engine_tracks_like_jax_engine(corridor, jax_engine):
         (teng.stats, jax_engine.stats)
     assert t_ate < 0.05, t_ate
     assert abs(t_ate - j_ate) < 0.01, (t_ate, j_ate)
+
+
+def _centre(T):
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def test_flush_leaves_the_next_window_prediction_stale_as_jax_does(
+        corridor, jax_engine, port_engine):
+    """JAX's rule, mirrored (ROADMAP Queue 3): ``flush()`` retires window
+    B (frames 5-8), which sets ``_prev2_Tcw`` to frame 7, then tracks the
+    partial window (frames 9-11) frame by frame, which moves ``last_Tcw``
+    and ``velocity`` but not ``_prev2_Tcw``.  The next window's
+    constant-velocity prediction, last · prev2⁻¹ · last, then spans four
+    frames (to about frame 15), where the per-frame one, velocity · last,
+    spans one (frame 12).  Centres within 0.01 m across the packages (the
+    whole-engine tolerance above), 0.05 m of the ground truth."""
+    poses, _, _ = corridor
+    got = {}
+    for name, eng in (("jax", jax_engine), ("port", port_engine)):
+        assert eng._pending is None and not eng._buf, name
+        assert eng.velocity is not None, name
+        last = np.asarray(eng.last_Tcw, np.float64)
+        prev2 = np.asarray(eng._prev2_Tcw, np.float64)
+        window_pred = last @ np.linalg.inv(prev2) @ last
+        frame_pred = np.asarray(eng.velocity, np.float64) @ last
+        got[name] = [_centre(T) for T in (prev2, last, window_pred,
+                                          frame_pred)]
+        for c, f in zip(got[name], (7, N_ENGINE - 1, N_ENGINE + 3,
+                                    N_ENGINE)):
+            assert np.linalg.norm(c - _centre(poses[f])) < 0.05, \
+                (name, f, c, _centre(poses[f]))
+    for cj, ct in zip(got["jax"], got["port"]):
+        assert np.linalg.norm(cj - ct) < 0.01, (cj, ct)
 
 
 # --------------------------------------------------- base-engine hooks ----
@@ -501,6 +553,49 @@ def test_loop_closing_runs_inside_the_retire():
     np.testing.assert_allclose(
         velocity, _row(5)[:16].reshape(4, 4) @ np.linalg.inv(prev2),
         atol=1e-6)
+
+
+def test_windows_after_a_loop_correction_keep_the_uncorrected_state():
+    """JAX's rule, mirrored (ROADMAP Queue 3): a loop corrected inside
+    window B's retire moves the map, but B's frames keep the poses tracked
+    on the map before it (the re-anchored ``last_Tcw`` is overwritten by
+    B's first frame), and window D, dispatched after the correction,
+    starts from window C's carried device state, not from the corrected
+    reference keyframe: C and D were tracked from pre-correction poses."""
+    polls = []
+
+    class Gba:
+        def poll_and_merge(self, ms):
+            return ms, False
+
+    class Closer:
+        gba = Gba()
+
+        def on_keyframe_deferred(self, ms, kf, kf_ordinal):
+            pass
+
+        def poll_deferred(self, ms):
+            polls.append(len(polls))
+            if len(polls) != 2:                    # B's retire corrects
+                return ms, False
+            pose = ms.kf_pose.clone()
+            pose[:, 0, 3] += 50.0
+            sc.maps.append(ms._replace(kf_pose=pose))
+            return sc.maps[-1], True
+
+    eng = _engine(decide=lambda f: False)
+    eng.loop_closer = Closer()
+    sc = Script(eng)
+    _push(eng, 1, 3 * W + 1)                       # windows A, B retire
+    assert eng.stats["loops_closed"] == 1
+    assert float(eng.ms.kf_pose[0, 0, 3]) == 50.0  # the map moved
+    np.testing.assert_array_equal(eng.last_Tcw,
+                                  _row(2 * W)[:16].reshape(4, 4))
+    _push(eng, 3 * W + 1, 4 * W + 1)               # D dispatched, C retires
+    assert len(sc.outs) == 4
+    _, state_T, _ = sc.outs[3]
+    assert torch.equal(state_T, sc.outs[2][0].state_T)   # C's, stale
+    assert eng.trajectory[2 * W - 1].ref_kf == 0
 
 
 def test_culled_reference_slot_waits_for_its_window():
