@@ -241,6 +241,7 @@ line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import time
@@ -515,11 +516,23 @@ def _timed(fn, log):
     return run
 
 
+def _device_events(prof):
+    """(name, device µs) of every device event of a finished profile, from
+    the raw kineto events: ``prof.events()`` first builds a tree over all
+    of a window's events, CPU ones included, which takes longer than the
+    window itself."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_hidden_event()]
+
+
 def _profiled(fn):
     """(CUDA kernels launched, their summed device ms, wall ms) of one call
     of ``fn`` under torch.profiler; the profiler's own cost is in the wall
     time, so compare device ms with an unprofiled wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -529,15 +542,13 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e.device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+    kernels = [us for _, us in _device_events(prof)]
     return len(kernels), sum(kernels) / 1e3, wall_ms
 
 
 def _top_kernels(fn, n=3):
     """[(kernel name, device ms, launches)] of the ``n`` kernels that took
     the most device time in one call of ``fn`` under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -546,10 +557,9 @@ def _top_kernels(fn, n=3):
         fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.device_time_total / 1e3, c + 1)
+    for name, us in _device_events(prof):
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us / 1e3, c + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
     return [(name[:60], round(t, 3), c) for name, (t, c) in ranked]
 
@@ -932,18 +942,25 @@ LOC_WINDOW, LOC_WINDOWS = 8, 1      # bench.py: 24 windows a pass
 def _record_matches(*sites):
     """Wrap the matcher so that calls made at the launch sites ``sites``
     are kept (inputs and kernel outputs) for a replay; returns (records,
-    restore)."""
+    restore).  The inputs are kept as copies: most are rows of a map
+    tensor (``ms.kf_desc[kf]``), and a view would keep that version of
+    the whole [K, N, 8] map tensor alive on the card (33.5 MB at 1024
+    slots, for every recorded call)."""
     from orbslam2_tpu_torch.ops import hamming_top2 as ht2
     from orbslam2_tpu_torch.ops import matching
 
     match = matching.match_descriptors
     records = []
 
+    def copy(x):
+        return x.clone() if torch.is_tensor(x) else x
+
     def recording(*args, **kwargs):
         out = match(*args, **kwargs)
         # the site is per thread, and unset on a thread that named none
         if getattr(ht2._site, "name", None) in sites:
-            records.append((args, kwargs, out))
+            records.append((tuple(map(copy, args)),
+                            {k: copy(v) for k, v in kwargs.items()}, out))
         return out
 
     matching.match_descriptors = recording
@@ -1160,6 +1177,7 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
         raise AssertionError(f"bench-loc: ATE {err} m")
     # after every timed pass: one LOC window, then the SLAM engine's next
     # window (frames 172-175, tracked and retired), under the profiler
+    t_prof = time.perf_counter()
     n_loc, dev_loc, wall_loc = _profiled(
         lambda: track(eng.ms, flat, state_T, assoc0, ref).summaries.cpu())
 
@@ -1170,6 +1188,7 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
 
     kf0 = eng.stats["kf_inserted"]
     n_slam, dev_slam, wall_slam = _profiled(slam_window)
+    prof_s = time.perf_counter() - t_prof
     print(f"[profile] LOC window of {LOC_WINDOW}: {n_loc / LOC_WINDOW:.0f} "
           f"kernels and {dev_loc / LOC_WINDOW:.1f} ms of device time a "
           f"frame ({wall_loc / LOC_WINDOW:.1f} ms wall under the profiler; "
@@ -1177,8 +1196,9 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
           f"unprofiled {1e3 / fps:.1f} ms); SLAM window of 4 with "
           f"{eng.stats['kf_inserted'] - kf0} keyframe(s): "
           f"{n_slam / 4:.0f} kernels and {dev_slam / 4:.1f} ms of device "
-          f"time a frame ({wall_slam / 4:.1f} ms wall under the profiler) "
-          f"({smi})", flush=True)
+          f"time a frame ({wall_slam / 4:.1f} ms wall under the profiler); "
+          f"the two profiled windows took {prof_s:.1f} s with the traces' "
+          f"reading ({smi})", flush=True)
     return by_site, {"loc_fps": fps, "pass_fps": rates}
 
 
@@ -3346,6 +3366,96 @@ SCALE_SITES = ("match_for_sim3", "reloc_attempt", "track_ref_kf",
                "window/track_ref_kf")
 
 
+def _live_cuda_tensors(n=4):
+    """(MB, shape, dtype) of the ``n`` largest CUDA storages that the
+    garbage collector can reach through a tensor."""
+    import warnings
+
+    big = {}
+    with warnings.catch_warnings():      # deprecated objects among them
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            if torch.is_tensor(obj) and obj.is_cuda:
+                st = obj.untyped_storage()
+                big[st.data_ptr()] = (round(st.nbytes() / 1e6, 1),
+                                      tuple(obj.shape), str(obj.dtype))
+    return sorted(big.values(), reverse=True)[:n]
+
+
+RECOUNT_MAX_BYTES = 0.5e9        # recount_matches alone, above its inputs
+LOOP_CHUNK_MAX_MB = 2500.0       # a loop row's peak above the phase's start
+
+
+def _scale_recount(eng, alone, rows, loop_frames, start, smi):
+    """Phase 24's whole-map search: one ``recount_matches`` call alone on
+    the final map (the newest live keyframe against its most covisible
+    one, the Sim3 of their poses), CUDA-event ms and peak bytes above its
+    inputs; the call again with its ``search_by_projection`` outputs
+    recorded, and once more in one pass over all P points
+    (``matching.PROJECTION_BLOCK`` = P, the [P, N] temporaries of the
+    unblocked search): the same count and the same index, distance and uv
+    bits.  Bars: the call's peak ≤ RECOUNT_MAX_BYTES; every row whose
+    chunk closed a loop peaks ≤ LOOP_CHUNK_MAX_MB above ``start``, the
+    bytes allocated when the phase began (what earlier phases left)."""
+    from orbslam2_tpu_torch.models import map_state as M
+    from orbslam2_tpu_torch.ops import matching
+
+    ms = eng.ms
+    fns = eng.loop_closer.fns
+    live = torch.nonzero(ms.kf_valid).flatten()
+    kf1 = int(live[-1])
+    kf2 = int(torch.argmax(M.covisibility_row(ms, kf1)))
+    T12 = ms.kf_pose[kf1] @ torch.linalg.inv(ms.kf_pose[kf2])
+    s12 = torch.ones((), device=T12.device)
+    args = (ms, kf1, kf2, s12, T12[:3, :3].contiguous(),
+            T12[:3, 3].contiguous())
+    n_blocked, rc_ms, rc_bytes = alone(lambda: fns.recount_matches(*args))
+    search, block = matching.search_by_projection, matching.PROJECTION_BLOCK
+    outs = []
+
+    def recording(*a, **k):
+        out = search(*a, **k)
+        outs.append(out)
+        return out
+
+    matching.search_by_projection = recording
+    try:
+        n_rec = fns.recount_matches(*args)
+        matching.PROJECTION_BLOCK = ms.P
+        n_one, one_ms, one_bytes = alone(lambda: fns.recount_matches(*args))
+    finally:
+        matching.search_by_projection = search
+        matching.PROJECTION_BLOCK = block
+    same = (int(n_blocked) == int(n_rec) == int(n_one) and len(outs) == 2
+            and all(torch.equal(a, b) for a, b in zip(*outs)))
+    chunk = rows[0]["frames"]
+    loop_rows = [r for r in rows
+                 if any(r["frames"] - chunk <= f < r["frames"]
+                        for f in loop_frames)]
+    loop_peak = max((r["peak_alloc_MB"] for r in loop_rows),
+                    default=0.0) - start / 1e6
+    print(f"[recount] recount_matches alone on the final map at {ms.K} KF "
+          f"slots, {ms.P} point slots, {ms.N} keypoints (KFs {kf1}, {kf2}): "
+          f"{rc_ms:.3f} ms, peak +{rc_bytes / 1e6:.1f} MB above its inputs, "
+          f"{ms.P // block} blocks of {block} points; {int(n_blocked)} "
+          f"matches; in one pass over all {ms.P} points {one_ms:.3f} ms, "
+          f"peak +{one_bytes / 1e6:.1f} MB; count, index, distance and uv "
+          f"equal: {same}; chunk peaks of the rows that closed a loop "
+          f"{[round(r['peak_alloc_MB'], 1) for r in loop_rows]} MB, of all "
+          f"rows {[round(r['peak_alloc_MB'], 1) for r in rows]} MB, "
+          f"{start / 1e6:.1f} MB of them allocated before the phase: the "
+          f"loop rows' own peak {loop_peak:.1f} MB ({smi})", flush=True)
+    if not same:
+        raise AssertionError(f"recount: blocked {int(n_blocked)} / "
+                             f"{int(n_rec)}, one pass {int(n_one)}, outputs "
+                             f"equal {same}")
+    if rc_bytes > RECOUNT_MAX_BYTES or loop_peak > LOOP_CHUNK_MAX_MB:
+        raise AssertionError(f"recount: peak +{rc_bytes / 1e6:.1f} MB (bar "
+                             f"{RECOUNT_MAX_BYTES / 1e6:.0f}), loop-closing "
+                             f"chunk +{loop_peak:.1f} MB (bar "
+                             f"{LOOP_CHUNK_MAX_MB:.0f})")
+
+
 def phase_scale(smi):
     """Phase 24: the map-scale circuit.  WindowedSlamEngine(window=4, loop
     closing on, no device given) at tools/scale_demo.py's full
@@ -3359,8 +3469,10 @@ def phase_scale(smi):
     3): fps, keyframes, live points, allocated and chunk-peak memory; the
     loop-closing frame's ms; every global-BA chunk (wall ms on the GBA
     thread, tracking beside it; the solver of each bundle_adjust, which
-    must be CG); then, on the final map, one robust GBA chunk alone and
-    one covisibility() call (CUDA-event ms, peak bytes).  Bars
+    must be CG); then, on the final map, one robust GBA chunk alone, one
+    covisibility() call (CUDA-event ms, peak bytes) and the whole-map
+    search of recount_matches (``_scale_recount``, last, with its own
+    bars).  Bars
     (test_scale_circuit.py's): ≥ 95% of frames tracked, ≥ 1 loop closed
     and its GBA merged, n_kfs ≤ 1024, ≥ 30 keyframes inserted, ATE <
     1.5 m; every hamming_top2 matching call of the run replayed with the
@@ -3375,6 +3487,21 @@ def phase_scale(smi):
     from orbslam2_tpu_torch.utils import render_pool, synthetic
 
     t_phase = time.perf_counter()
+    # the rows' chunk peaks count every allocation of the process: free
+    # what earlier phases left in reference cycles and the cuBLAS
+    # workspaces of their threads' streams, and name what stays
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    after_gc = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    start = torch.cuda.memory_allocated()
+    print(f"[scale] allocated at the phase's start {held / 1e6:.1f} MB, "
+          f"{after_gc / 1e6:.1f} MB after gc.collect(), {start / 1e6:.1f} "
+          f"MB after clearing the cuBLAS workspaces; the largest live CUDA "
+          f"tensors (MB, shape, dtype) {_live_cuda_tensors()} ({smi})",
+          flush=True)
     cfg = sd.scale_config()
     rng = np.random.default_rng(0)
     world, poses = sd.small_circuit(rng, SCALE_FRAMES)
@@ -3454,6 +3581,7 @@ def phase_scale(smi):
     (gms, _), gba_ms, gba_bytes = alone(lambda: f_chunk(ms, obs, True))
     gba_ok = bool(torch.isfinite(gms.kf_pose).all()
                   and torch.isfinite(gms.mp_pos).all())
+    del gms
     phase_s = time.perf_counter() - t_phase
     print(f"[scale] {SCALE_FRAMES} frames of the circuit at {K} KF slots, "
           f"{ms.P} point slots, {K * N} observation rows (rendered in "
@@ -3497,6 +3625,7 @@ def phase_scale(smi):
     if not same:
         raise AssertionError("scale: kernel and plain differ on the "
                              "circuit's matching calls")
+    _scale_recount(eng, alone, rows, flog["loop_frames"], start, smi)
     return by_site, {"fps": summary["overall_fps"], "ate_m":
                      summary["ate_m"], "gba_ms": gba_ms,
                      "cov_ms": cov_ms, "phase_s": phase_s}

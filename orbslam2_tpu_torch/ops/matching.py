@@ -26,6 +26,9 @@ TH_LOW = 50
 TH_HIGH = 100
 HISTO_LENGTH = 30
 NO_MATCH = -1
+# query points a block in search_by_projection's [P, N] pass: an int64
+# [8192, 1024] temporary of the Hamming popcount is 64 MiB
+PROJECTION_BLOCK = 8192
 
 
 def _log_f32(x: float) -> float:
@@ -108,6 +111,28 @@ class ProjectionQuery(NamedTuple):
     valid: torch.Tensor       # [P] bool
 
 
+def _gated_best(uv: torch.Tensor, ur: torch.Tensor, win: torch.Tensor,
+                pred_lvl: torch.Tensor, visible: torch.Tensor,
+                desc: torch.Tensor, kp_xy: torch.Tensor,
+                kp_level: torch.Tensor, kp_desc: torch.Tensor,
+                kp_valid: torch.Tensor, kp_ur: torch.Tensor,
+                check_ur: bool):
+    """The [P, N] part of ``search_by_projection`` for a block of query
+    rows: the gates and the gated Hamming best and second best.  Each row
+    depends on its own point alone."""
+    gate = torch.abs(uv[:, 0:1] - kp_xy[None, :, 0]) < win
+    gate &= torch.abs(uv[:, 1:2] - kp_xy[None, :, 1]) < win
+    lvl = kp_level.long()[None, :]
+    gate &= ((lvl >= pred_lvl[:, None] - 1) & (lvl <= pred_lvl[:, None] + 1)
+             & kp_valid[None, :] & visible[:, None])
+    if check_ur:
+        gate &= ((kp_ur[None, :] < 0)
+                 | (torch.abs(ur[:, None] - kp_ur[None, :]) < win))
+    d = hamming.hamming_matrix(desc, kp_desc)
+    d.masked_fill_(~gate, hamming.MAX_DIST)
+    return best_and_second(d)
+
+
 def search_by_projection(
     cam: cam_mod.Camera, Tcw: torch.Tensor, query: ProjectionQuery,
     kp_xy: torch.Tensor, kp_level: torch.Tensor, kp_desc: torch.Tensor,
@@ -118,7 +143,14 @@ def search_by_projection(
 ):
     """ORBmatcher::SearchByProjection (frame ↔ points).  Returns
     (point→kp index [P], distance [P], projected uv [P, 2]); duplicates
-    are not resolved here."""
+    are not resolved here.
+
+    The per-point projection runs over all P points at once; the [P, N]
+    gates and distances run over blocks of ``PROJECTION_BLOCK`` points
+    (one block where P is no larger), so a whole-map query
+    (``recount_matches``: 131,072 points at 1024 keyframe slots) holds
+    [PROJECTION_BLOCK, N] temporaries, not [P, N].  Every row depends on
+    its own point alone, so the blocks give the single pass's bits."""
     visible, uv, ur, dist, view_cos = cam_mod.in_frustum(
         cam, Tcw, query.pos_w, 0.8 * query.min_dist, 1.2 * query.max_dist,
         query.normal, view_cos_limit)
@@ -128,19 +160,16 @@ def search_by_projection(
     r = torch.where(view_cos > 0.998, 2.5, 4.0) * (radius / 4.0)
     win = (r * scale_of)[:, None]                            # [P, 1]
 
-    du = torch.abs(uv[:, 0:1] - kp_xy[None, :, 0])
-    dv = torch.abs(uv[:, 1:2] - kp_xy[None, :, 1])
-    lvl = kp_level.long()[None, :]
-    gate = ((du < win) & (dv < win)
-            & (lvl >= pred_lvl[:, None] - 1) & (lvl <= pred_lvl[:, None] + 1)
-            & kp_valid[None, :] & visible[:, None])
-    if check_ur:
-        dur = torch.abs(ur[:, None] - kp_ur[None, :])
-        gate = gate & ((kp_ur[None, :] < 0) | (dur < win))
-
-    d = hamming.hamming_matrix(query.desc, kp_desc)
-    d = torch.where(gate, d, torch.full_like(d, hamming.MAX_DIST))
-    best, best_idx, second = best_and_second(d)
+    kp = (kp_xy, kp_level, kp_desc, kp_valid, kp_ur, check_ur)
+    P, B = uv.shape[0], PROJECTION_BLOCK
+    parts = [_gated_best(uv[s:s + B], ur[s:s + B], win[s:s + B],
+                         pred_lvl[s:s + B], visible[s:s + B],
+                         query.desc[s:s + B], *kp)
+             for s in range(0, max(P, 1), B)]
+    if len(parts) == 1:
+        best, best_idx, second = parts[0]
+    else:
+        best, best_idx, second = (torch.cat(x) for x in zip(*parts))
     ok = (best <= th_dist) & (best < nn_ratio * second.to(torch.float32))
     return torch.where(ok, best_idx, NO_MATCH), best, uv
 

@@ -11,6 +11,9 @@ Tolerances:
   * sim3_ransac / match_for_sim3 with JAX's hypotheses injected: same
     winner (inlier mask and count identical), s, R, t 1e-4;
   * search_by_sim3 exact; optimize_sim3 1e-4, inlier count ±1;
+  * recount_matches exact, also with the map laid into 1024 keyframe
+    slots and 131,072 point slots, where its whole-map search takes
+    [PROJECTION_BLOCK, 1024] Hamming blocks, never a [131072, 1024] one;
   * optimize_pose_graph 1e-3 on the tests/test_pose_graph.py drift case;
   * correct_loop poses 1e-3, points 1e-2; fuse_after_loop merge count
     exact, integer map fields identical on ≥ 99% of rows;
@@ -51,6 +54,7 @@ from orbslam2_tpu_torch.models import map_state as TM
 from orbslam2_tpu_torch.models import vocabulary as tvoc
 from orbslam2_tpu_torch.ops import bow as tbow
 from orbslam2_tpu_torch.ops import horn as thorn
+from orbslam2_tpu_torch.ops import matching as tmatching
 from orbslam2_tpu_torch.ops import pose_graph as tpg
 from orbslam2_tpu_torch.ops import sim3opt as tsim3opt
 from orbslam2_tpu_torch.ops import sim3solver as tsim3
@@ -541,6 +545,73 @@ def test_refine_and_recount_match_jax(built):
     jn = b["jf"][4](b["ms"], jnp.int32(kf1), jnp.int32(kf2), *j[:3])
     tn = b["tf"].recount_matches(b["tms"], kf1, kf2, *t[:3])
     assert int(tn) == int(jn) >= 40
+
+
+def _scale_cfg(K, P):
+    """tests/test_gba.py's configuration at K keyframe slots, P point
+    slots and 1000 features (1024 keypoint columns)."""
+    cfg = gba_cfg()
+    return dataclasses.replace(
+        cfg, orb=dataclasses.replace(cfg.orb, n_features=1000),
+        capacity=dataclasses.replace(cfg.capacity, max_keyframes=K,
+                                     max_map_points=P))
+
+
+def _at_scale(ms, cfg, rng):
+    """``ms`` laid into an empty map of ``cfg``'s capacity: the keyframes
+    keep their slots, the points move to slots spread over the whole
+    range (``kf_mp`` follows), and every added slot and keypoint column
+    is empty."""
+    big = {k: np.array(v) for k, v in JM.empty_map(cfg)._asdict().items()}
+    src = {k: np.asarray(v) for k, v in ms._asdict().items()}
+    k0, n0 = src["kf_xy"].shape[:2]
+    slots = np.sort(rng.choice(cfg.capacity.max_map_points,
+                               src["mp_pos"].shape[0], replace=False))
+    for k, v in src.items():
+        if k.startswith("kf_"):
+            big[k][(slice(0, k0), slice(0, n0))[:v.ndim]] = v
+        else:
+            big[k][slots] = v
+    kmp = big["kf_mp"][:k0, :n0]
+    big["kf_mp"][:k0, :n0] = np.where(kmp >= 0, slots[np.maximum(kmp, 0)],
+                                      kmp)
+    return JM.MapState(**{k: jnp.asarray(v) for k, v in big.items()})
+
+
+def test_recount_matches_at_1024_slots_blocks_and_matches_jax(
+        built, monkeypatch):
+    """``recount_matches`` on the map laid into 1024 keyframe slots, 1024
+    keypoint columns and 131,072 point slots: the whole-map search runs in
+    blocks (no [P, N] tensor: the Hamming matrices are
+    [PROJECTION_BLOCK, 1024]), and the count equals the JAX function's on
+    the same map and the count on the map as built."""
+    b = built
+    K, N, P = 1024, 1024, 1 << 17
+    cfg = _scale_cfg(K, P)
+    ms_big = _at_scale(b["ms"], cfg, np.random.default_rng(5))
+    kf1, kf2 = _covisible_pair(b)
+    T12 = np.asarray(b["ms"].kf_pose[kf1]) @ np.linalg.inv(
+        np.asarray(b["ms"].kf_pose[kf2]))
+    s12, R12, t12 = (jnp.float32(1.0), jnp.asarray(T12[:3, :3]),
+                     jnp.asarray(T12[:3, 3]))
+    j_small = b["jf"][4](b["ms"], jnp.int32(kf1), jnp.int32(kf2), s12, R12,
+                         t12)
+    jf = jlc.make_loop_fns(cfg, b["voc"])
+    j_big = jf[4](ms_big, jnp.int32(kf1), jnp.int32(kf2), s12, R12, t12)
+    tf = tlc.make_loop_fns(port_cfg(cfg), b["tv"])
+    shapes = []
+    hm = tmatching.hamming.hamming_matrix
+
+    def spy(a, c):
+        shapes.append((a.shape[0], c.shape[0]))
+        return hm(a, c)
+
+    monkeypatch.setattr(tmatching.hamming, "hamming_matrix", spy)
+    t_big = tf.recount_matches(port_ms(ms_big), kf1, kf2, T(s12), T(R12),
+                               T(t12))
+    B = tmatching.PROJECTION_BLOCK
+    assert shapes == [(B, N)] * (P // B)
+    assert int(t_big) == int(j_big) == int(j_small) >= 40
 
 
 # ---------------------------------------------------- pose graph ----------

@@ -6,9 +6,10 @@ Tolerances (JAX's random draws are computed here and passed to the port
 as ``idx=``; torch's generator draws other sets):
 
   * the mono frontend on a rendered 640×480 frame (uint8 gray on both
-    sides), the port handed JAX's IC angles (tests/jax_angles.py: their
-    float32 sums round by the host CPU on resized levels; the port's own
-    angles are held in test_torch_frontend.py): keypoints, levels,
+    sides), the port handed JAX's pyramid and IC angles
+    (tests/jax_angles.py: both are float32 sums that round by the host
+    CPU on resized levels; the port's own are held in
+    test_torch_frontend.py): keypoints, levels,
     validity and descriptors exact, angles equal to JAX's within 1e-4 rad
     (met trivially under the handover), ``ur`` and ``depth`` all −1;
   * ``search_for_initialization`` on two rendered frames: match indices
@@ -63,6 +64,7 @@ from orbslam2_tpu_torch.runtime.slam import SlamEngine as TorchEngine
 from orbslam2_tpu_torch.utils import camera as tcam
 
 from jax_angles import hand_over as hand_over_jax_angles
+from jax_angles import hand_over_pyramid
 from orbslam2_tpu_torch.utils import trajectory as ttraj
 
 torch.set_num_threads(2)
@@ -134,6 +136,7 @@ def sim3_ate(eng, poses_gt):
 
 def test_mono_frontend_exact(sequence, monkeypatch):
     _, frames = sequence
+    hand_over_pyramid(monkeypatch)
     hand_over_jax_angles(monkeypatch)
     g32 = frames[3].astype(np.float32)
     jfd = jframe.make_frontend_mono(JCFG)(jnp.asarray(g32))

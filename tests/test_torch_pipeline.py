@@ -13,6 +13,10 @@ Sequence: tests/test_pipeline.py's scene (900 sprites, extent (14, 9,
 rendered with the port's copy of ``synthetic``; 640×480, 400 features,
 64 keyframes; loop closing off.
 
+The drained run's port engine takes JAX's frontend (tests/jax_angles.py:
+its pyramids, IC angles and stereo SAD sum in a host-dependent float
+order), since its keyframe count is held exact.
+
 Tolerances: keyframe count and slots equal; each frame's camera centre
 within 0.01 m of JAX's (the per-frame engines' parity tests hold the ATE
 within 0.01-0.03 m); the counter sums handed to each mapping step within
@@ -48,6 +52,8 @@ from orbslam2_tpu_torch.runtime import serialization, tracking
 from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
 from orbslam2_tpu_torch.runtime.system import System
 from orbslam2_tpu_torch.utils import synthetic
+
+from jax_angles import hand_over_frontend
 
 torch.set_num_threads(2)
 
@@ -126,7 +132,9 @@ def _share_programs(dst, src):
 def drained(sequence):
     frames, _ = sequence
     jeng = JaxAsync(JCFG, enable_loop_closing=False)
-    teng = AsyncSlamEngine(CFG, enable_loop_closing=False, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        hand_over_frontend(mp)
+        teng = AsyncSlamEngine(CFG, enable_loop_closing=False, device="cpu")
     return ((jeng,) + _drained_run(jeng, frames),
             (teng,) + _drained_run(teng, frames))
 

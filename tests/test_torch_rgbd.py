@@ -10,9 +10,10 @@ Tolerances:
     depth; the virtual right coordinate
     ``x − bf/d`` within 1e-4 px (XLA may form the quotient another way);
   * the RGB-D frontend on a rendered 640×480 frame (uint8 gray, float32
-    depth), the port handed JAX's IC angles (tests/jax_angles.py: their
-    float32 sums round by the host CPU on resized levels; the port's own
-    angles are held in test_torch_frontend.py): keypoints, levels,
+    depth), the port handed JAX's pyramid and IC angles
+    (tests/jax_angles.py: both are float32 sums that round by the host
+    CPU on resized levels; the port's own are held in
+    test_torch_frontend.py): keypoints, levels,
     validity, descriptors and depths exact, ``ur`` 1e-4 px, angles
     within 1e-4 rad of JAX's (met trivially under the handover);
   * ``SlamEngine`` (here) and ``WindowedSlamEngine(window=4)``
@@ -45,6 +46,7 @@ from orbslam2_tpu_torch.ops import stereo as ts
 from orbslam2_tpu_torch.runtime.slam import SlamEngine as TorchEngine
 
 from jax_angles import hand_over as hand_over_jax_angles
+from jax_angles import hand_over_pyramid
 
 torch.set_num_threads(2)
 
@@ -116,6 +118,7 @@ def test_depth_from_rgbd_exact():
 
 def test_rgbd_frontend_exact(sequence, monkeypatch):
     _, frames = sequence
+    hand_over_pyramid(monkeypatch)
     hand_over_jax_angles(monkeypatch)
     g, d = frames[3]
     g32 = g.astype(np.float32)

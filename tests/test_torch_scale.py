@@ -7,7 +7,9 @@ against the JAX package.
     131,072 points, 1000 features, the scale camera) over the first 12
     frames of tests/test_scale_circuit.py's scene, uint8 frames on both
     sides, ``_mapper_idle`` patched to True on both and the port handed
-    JAX's IC angles (tests/jax_angles.py): the same ``kf_inserted``,
+    JAX's frontend (tests/jax_angles.py: its pyramids, IC angles and
+    stereo SAD sum in a host-dependent float order): the same
+    ``kf_inserted``,
     ``n_kfs`` and ``n_live_points``; neither LOST; every camera centre
     and the ATE within 0.01 m of the JAX engine's (test_torch_windowed.py's
     parity bar for whole-engine runs), ATE < 0.1 m (both packages take
@@ -46,7 +48,7 @@ from orbslam2_tpu_torch.tools import plot_trajectory as tplot
 from orbslam2_tpu_torch.tools import scale_demo as sd
 from orbslam2_tpu_torch.utils import render_pool, synthetic
 
-from jax_angles import hand_over as hand_over_jax_angles
+from jax_angles import hand_over_frontend
 
 torch.set_num_threads(2)
 
@@ -103,7 +105,7 @@ def test_windowed_engines_at_scale_capacity_track_alike(monkeypatch):
                                            world, tcfg.camera, poses, rng))
     jeng = JaxW(_jax_cfg(tcfg), enable_loop_closing=True, window=4)
     jeng._mapper_idle = lambda: True
-    hand_over_jax_angles(monkeypatch)
+    hand_over_frontend(monkeypatch)
     teng = WindowedSlamEngine(tcfg, enable_loop_closing=True, device="cpu",
                               window=4)
     teng._mapper_idle = lambda: True

@@ -58,7 +58,7 @@ from orbslam2_tpu_torch.ops import hamming_top2 as tk
 from orbslam2_tpu_torch.runtime.slam import SlamEngine
 from orbslam2_tpu_torch.utils import synthetic
 
-from jax_angles import with_jax_angles
+from jax_angles import with_jax_angles, with_jax_pyramid
 
 torch.set_num_threads(2)
 
@@ -217,13 +217,6 @@ def _jax_extract(img, cfg):
                            for i in range(6)))
 
 
-def _with_jax_pyramid(img, n_levels, scale_factor):
-    """The port's ``build_pyramid`` replaced by JAX's on the same image."""
-    return [torch.from_numpy(np.array(x)).to(img.device)
-            for x in _jax_pyramid(jnp.asarray(img.cpu().numpy()), n_levels,
-                                  scale_factor)]
-
-
 def _one_raster_bank():
     return [np.asarray(synthetic._make_texture(np.random.default_rng(5),
                                                256))]
@@ -235,7 +228,7 @@ def test_small_harvest_matches_jax(monkeypatch):
     for mod in (jvoc, tvoc):
         monkeypatch.setattr(mod, "_real_textures", _one_raster_bank)
     monkeypatch.setattr(jext, "extract", _jax_extract)
-    monkeypatch.setattr(tvoc.image_ops, "build_pyramid", _with_jax_pyramid)
+    monkeypatch.setattr(tvoc.image_ops, "build_pyramid", with_jax_pyramid)
     monkeypatch.setattr(text, "keypoint_angles", with_jax_angles)
     want = jvoc.harvest_training_descriptors(n_worlds=1, views_per_world=1)
     got = tvoc.harvest_training_descriptors(n_worlds=1, views_per_world=1,
@@ -329,7 +322,7 @@ def test_default_harvest_and_tree_match_jax(monkeypatch):
     data/vocab_k10_l4.npz: a JAX rebuild today differs from that file at
     every level and in idf."""
     want = jvoc.harvest_training_descriptors()
-    monkeypatch.setattr(tvoc.image_ops, "build_pyramid", _with_jax_pyramid)
+    monkeypatch.setattr(tvoc.image_ops, "build_pyramid", with_jax_pyramid)
     monkeypatch.setattr(text, "keypoint_angles", with_jax_angles)
     got = tvoc.harvest_training_descriptors(device="cpu")
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)

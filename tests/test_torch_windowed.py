@@ -10,10 +10,11 @@ Parity, on the CPU at 640×480, 400 features, 16 keyframes, 4096 points:
     in-window TrackReferenceKeyFrame fallback and keep its re-run:
     summaries' integer fields, associations, inlier masks and counters
     identical; poses within 1e-4 (float32 pose optimisation, other
-    summation order; 7e-6 seen); the port is handed JAX's IC angles
-    (tests/jax_angles.py: the float32 moment sums round by the host CPU,
-    and a resized level's ULP flipped one descriptor bit), and the
-    frames' descriptors are held bit-exact;
+    summation order; 7e-6 seen); the port is handed JAX's frontend
+    (tests/jax_angles.py: the pyramids, the IC angles' moment sums and
+    the stereo SAD round by the host CPU, and a resized level's ULP
+    flipped one descriptor bit), and the frames' descriptors are held
+    bit-exact;
   * one window of ``streaming.make_window_tracker`` on the same map:
     same tolerances;
   * 12 frames through both ``WindowedSlamEngine(window=4)``, loop closing
@@ -54,7 +55,7 @@ from orbslam2_tpu_torch.runtime.slam import SlamEngine as TorchSlamEngine
 from orbslam2_tpu_torch.runtime.windowed import (SlamWindowOut,
                                                  WindowedSlamEngine)
 
-from jax_angles import hand_over as hand_over_jax_angles
+from jax_angles import hand_over_frontend
 
 torch.set_num_threads(2)
 
@@ -171,7 +172,7 @@ def test_window_tracker_matches_jax_with_in_window_fallback(
         return fns._replace(track_ref_kf=track_ref_kf)
 
     monkeypatch.setattr(ttracking, "make_tracking_fns", recording_fns)
-    hand_over_jax_angles(monkeypatch)
+    hand_over_frontend(monkeypatch)
     tracker = twindowed.make_slam_window_tracker(TCFG, 4)
     tout = tracker(_port_map(jax_engine), _pairs(jolted), to_tensor(sT),
                    to_tensor(assoc0), to_tensor(inl0), ref_kf)
