@@ -240,10 +240,12 @@ line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -530,9 +532,10 @@ def _device_events(prof):
 
 
 def _profiled(fn):
-    """(CUDA kernels launched, their summed device ms, wall ms) of one call
-    of ``fn`` under torch.profiler; the profiler's own cost is in the wall
-    time, so compare device ms with an unprofiled wall time."""
+    """(CUDA kernels launched, their summed device ms, wall ms,
+    ``cudaStreamSynchronize`` calls) of one call of ``fn`` under
+    torch.profiler; the profiler's own cost is in the wall time, so
+    compare device ms with an unprofiled wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -543,7 +546,48 @@ def _profiled(fn):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [us for _, us in _device_events(prof)]
-    return len(kernels), sum(kernels) / 1e3, wall_ms
+    syncs = sum(e.name() == "cudaStreamSynchronize"
+                for e in prof.profiler.kineto_results.events())
+    return len(kernels), sum(kernels) / 1e3, wall_ms, syncs
+
+
+@contextlib.contextmanager
+def _no_hamming_syncs():
+    """Within the block, every call of ``hamming.hamming_matrix`` (the one
+    that ``masked_hamming_matrix`` and every caller reach) made while no
+    other Python thread runs (the mode is process-wide) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside it
+    raises.  Yields [calls checked, calls made beside another thread].
+    The mode is first shown to catch the blocking copy of a Python
+    scalar to the card."""
+    from orbslam2_tpu_torch.ops import hamming
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.tensor(128.0, device="cuda")
+        raise AssertionError("sync debug mode let a blocking host copy by")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    plain, calls = hamming.hamming_matrix, [0, 0]
+
+    def checked(a, b):
+        if threading.active_count() > 1:
+            calls[1] += 1
+            return plain(a, b)
+        calls[0] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return plain(a, b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    hamming.hamming_matrix = checked
+    try:
+        yield calls
+    finally:
+        hamming.hamming_matrix = plain
 
 
 def _top_kernels(fn, n=3):
@@ -1178,7 +1222,7 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
     # after every timed pass: one LOC window, then the SLAM engine's next
     # window (frames 172-175, tracked and retired), under the profiler
     t_prof = time.perf_counter()
-    n_loc, dev_loc, wall_loc = _profiled(
+    n_loc, dev_loc, wall_loc, _ = _profiled(
         lambda: track(eng.ms, flat, state_T, assoc0, ref).summaries.cpu())
 
     def slam_window():
@@ -1187,7 +1231,8 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
         eng.flush()
 
     kf0 = eng.stats["kf_inserted"]
-    n_slam, dev_slam, wall_slam = _profiled(slam_window)
+    with _no_hamming_syncs() as n_hamming:
+        n_slam, dev_slam, wall_slam, syncs = _profiled(slam_window)
     prof_s = time.perf_counter() - t_prof
     print(f"[profile] LOC window of {LOC_WINDOW}: {n_loc / LOC_WINDOW:.0f} "
           f"kernels and {dev_loc / LOC_WINDOW:.1f} ms of device time a "
@@ -1196,9 +1241,15 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
           f"unprofiled {1e3 / fps:.1f} ms); SLAM window of 4 with "
           f"{eng.stats['kf_inserted'] - kf0} keyframe(s): "
           f"{n_slam / 4:.0f} kernels and {dev_slam / 4:.1f} ms of device "
-          f"time a frame ({wall_slam / 4:.1f} ms wall under the profiler); "
-          f"the two profiled windows took {prof_s:.1f} s with the traces' "
-          f"reading ({smi})", flush=True)
+          f"time a frame ({wall_slam / 4:.1f} ms wall under the profiler), "
+          f"{syncs / 4:.2f} cudaStreamSynchronize a frame, none in the "
+          f"{n_hamming[0]} Hamming matrix calls checked ({n_hamming[1]} "
+          f"made beside another thread); the two profiled windows "
+          f"took {prof_s:.1f} s with the traces' reading ({smi})",
+          flush=True)
+    if n_hamming[0] < 1:
+        raise AssertionError(f"profile: no Hamming matrix call checked for "
+                             f"syncs ({n_hamming[1]} beside a thread)")
     return by_site, {"loc_fps": fps, "pass_fps": rates}
 
 
@@ -1526,7 +1577,7 @@ def phase_gba_solvers(smi):
     def probe(*args):
         if not per_step:
             for n in (8, 16):
-                k, dev_ms, _ = _profiled(
+                k, dev_ms, _, _ = _profiled(
                     lambda: cg_solve(*args[:-1], n))
                 per_step[n] = (k, dev_ms)
             top.extend(_top_kernels(lambda: cg_solve(*args[:-1], 16)))
@@ -1790,7 +1841,7 @@ def phase_bench_mono(smi):
         eng.flush()
 
     kf0 = eng.stats["kf_inserted"]
-    n_k, dev_ms, wall_ms = _profiled(window)
+    n_k, dev_ms, wall_ms, _ = _profiled(window)
     fps = float(np.median(pass_fps))
     print(f"[bench-mono] {n_m} frames (rendered with 4 more in "
           f"{render_s:.1f} s): pass fps {[round(f, 3) for f in pass_fps]}, "

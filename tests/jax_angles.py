@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from orbslam2_tpu import config as jconfig
-from orbslam2_tpu.models import frame as jframe
 from orbslam2_tpu.ops import extractor as jext
 from orbslam2_tpu.ops import image as jimage
 from orbslam2_tpu_torch.convert import frame_data_from_numpy
@@ -77,9 +76,13 @@ def _jax_cfg(cfg):
         sensor=cfg.sensor)
 
 
-def _jax_frontend(make_jax):
+def _jax_frontend(jax_engine):
     def make(cfg):
-        front = make_jax(_jax_cfg(cfg))
+        # a frontend reads only the camera and ORB settings
+        jcfg, ecfg = _jax_cfg(cfg), jax_engine.cfg
+        assert (ecfg.camera, ecfg.orb, ecfg.sensor) == \
+            (jcfg.camera, jcfg.orb, jcfg.sensor), "another frontend"
+        front = jax_engine.frontend
 
         def frontend(*imgs):
             out = front(*(jnp.asarray(x.cpu().numpy()) for x in imgs))
@@ -92,13 +95,12 @@ def _jax_frontend(make_jax):
     return make
 
 
-def hand_over_frontend(monkeypatch):
+def hand_over_frontend(monkeypatch, jax_engine):
     """Make the port's engines and trackers built in this test take JAX's
-    FrameData (its jitted stereo, RGB-D and mono frontends on the same
-    float32 images): the pyramids, the IC angles and the stereo SAD as
-    JAX computes them.  JAX's windowed tracker runs the same frontend
-    inside its scan and gives the same bits."""
+    FrameData: ``jax_engine``'s own jitted frontend (stereo, RGB-D or
+    mono) on the same float32 images, i.e. the pyramids, the IC angles
+    and the stereo SAD as JAX computes them.  JAX's windowed tracker runs
+    the same frontend inside its scan and gives the same bits."""
     for name in ("make_frontend_stereo", "make_frontend_rgbd",
                  "make_frontend_mono"):
-        monkeypatch.setattr(tframe, name, _jax_frontend(getattr(jframe,
-                                                                name)))
+        monkeypatch.setattr(tframe, name, _jax_frontend(jax_engine))

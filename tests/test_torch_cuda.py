@@ -11,6 +11,8 @@ import torch
 from orbslam2_tpu_torch.ops import hamming_top2 as tk
 from orbslam2_tpu_torch.ops import matching
 
+import hamming_checks as hc
+
 pytestmark = pytest.mark.cuda
 
 
@@ -817,3 +819,41 @@ def test_loop_closer_on_the_card_reads_a_db_sharded_elsewhere():
     c2, s2 = dense.fns.detect(ms, dense.db, -1, q, 0.0)
     assert torch.equal(c1, c2)
     assert float((s1 - s2).abs().max()) <= 1e-6
+
+
+def test_int32_hamming_on_the_card_matches_python_and_int64():
+    """tests/test_torch_hamming.py's checks of the int32 popcount and the
+    distance functions, on the card: Python's bit count on the edge words
+    and a random sample; the former int64 formula on random rows and rows
+    of every edge word, past JAX's matrix-unit threshold too."""
+    rng = np.random.default_rng(6)
+    hc.check_popcount(hc.EDGE_WORDS, "cuda")
+    hc.check_popcount([hc.as_int32(int(w)) for w in
+                       rng.integers(0, 2 ** 32, 4096, dtype=np.uint64)],
+                      "cuda")
+    for N, M in [(0, 5), (37, 53), (1000, 1100), (8192, 1024)]:
+        a, b = hc.descriptor_rows(rng, N), hc.descriptor_rows(rng, M)
+        av, bv = rng.random(len(a)) < 0.9, rng.random(len(b)) < 0.9
+        hc.check_hamming(a, av, b, bv, "cuda")
+
+
+def test_hamming_matrices_make_no_host_sync_on_the_card():
+    """The distance matrices run on the card with no host sync: under
+    ``set_sync_debug_mode("error")`` a sync raises, as the blocking copy
+    of a Python scalar to the card shows first."""
+    from orbslam2_tpu_torch.ops import hamming
+
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(hc.descriptor_rows(rng, 1000)).cuda()
+    b = torch.from_numpy(hc.descriptor_rows(rng, 1024)).cuda()
+    av = torch.ones(len(a), dtype=torch.bool, device="cuda")
+    bv = torch.ones(len(b), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            torch.tensor(128.0, device="cuda")
+        hamming.hamming_matrix(a, b)
+        hamming.masked_hamming_matrix(a, av, b, bv)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -19,6 +19,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 cv2 = pytest.importorskip("cv2")
 from PIL import Image  # noqa: E402
@@ -26,6 +27,8 @@ from PIL import Image  # noqa: E402
 from orbslam2_tpu.utils import datasets as jds  # noqa: E402
 from orbslam2_tpu_torch.utils import datasets as tds  # noqa: E402
 from orbslam2_tpu_torch.utils import png  # noqa: E402
+
+torch.set_num_threads(2)
 
 FORMATS = ["gray8", "rgb8", "rgba8", "gray16"]
 

@@ -1,10 +1,18 @@
 """Hamming distance, the plain hamming_top2 and match_descriptors of the
-port against the JAX package.  Tolerance: bit-exact (integer outputs)."""
+port against the JAX package.  Tolerance: bit-exact (integer outputs).
+
+The port's int32 popcount is held against Python's bit count on edge
+words and on a hypothesis sample, and its distance functions against the
+former int64 formula and the JAX package (tests/hamming_checks.py; the
+same checks on the card are in tests/test_torch_cuda.py)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from orbslam2_tpu.ops import hamming as jh
 from orbslam2_tpu.ops import matching as jm
@@ -12,6 +20,8 @@ from orbslam2_tpu_torch.convert import to_tensor
 from orbslam2_tpu_torch.ops import hamming as th
 from orbslam2_tpu_torch.ops import hamming_top2 as tk
 from orbslam2_tpu_torch.ops import matching as tm
+
+import hamming_checks as hc
 
 torch.set_num_threads(2)
 
@@ -183,3 +193,62 @@ def test_hamming_top2_refuses_non_cuda_devices():
     v = torch.zeros(4, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="not CUDA"):
         tk.hamming_top2(a, v, a, v)
+
+
+# ------------------------------------------------------- int32 popcount --
+
+def test_popcount32_counts_edge_words():
+    hc.check_popcount(hc.EDGE_WORDS, "cpu")
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.integers(-2 ** 31, 2 ** 31 - 1), min_size=1,
+                max_size=64))
+def test_popcount32_matches_python_count(words):
+    hc.check_popcount(words, "cpu")
+
+
+class _DtypesMade(TorchDispatchMode):
+    """The dtypes of every tensor that an op returns inside the block."""
+
+    def __init__(self):
+        super().__init__()
+        self.dtypes = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor):
+                self.dtypes.add(t.dtype)
+        return out
+
+
+def test_popcount32_and_hamming_matrix_make_no_int64_tensor():
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(hc.descriptor_rows(rng, 20))
+    b = torch.from_numpy(hc.descriptor_rows(rng, 30))
+    with _DtypesMade() as made:
+        th.popcount32(a ^ b[:a.shape[0]])
+    assert made.dtypes == {torch.int32}, made.dtypes
+    with _DtypesMade() as made:
+        th.hamming_matrix(a, b)
+    assert torch.int64 not in made.dtypes, made.dtypes
+
+
+@pytest.mark.parametrize("N,M", [(0, 5), (37, 53), (1000, 1100)])
+def test_distance_functions_match_int64_formula_and_jax(N, M):
+    """``hamming_matrix``, ``masked_hamming_matrix`` and
+    ``hamming_pairwise`` on random rows and rows of every edge word:
+    equal to the former int64 formula and to the JAX package (whose
+    matrix takes its bf16 matrix-unit form from 2²⁰ pairs: 1038 × 1138)."""
+    rng = np.random.default_rng(N + M)
+    a, b = hc.descriptor_rows(rng, N), hc.descriptor_rows(rng, M)
+    av, bv = rng.random(len(a)) < 0.9, rng.random(len(b)) < 0.9
+    d, md, pw = hc.check_hamming(a, av, b, bv, "cpu")
+    ja, jb = jnp.asarray(a.view(np.uint32)), jnp.asarray(b.view(np.uint32))
+    k = len(pw)
+    np.testing.assert_array_equal(d, np.asarray(jh.hamming_matrix(ja, jb)))
+    np.testing.assert_array_equal(md, np.asarray(jh.masked_hamming_matrix(
+        ja, jnp.asarray(av), jb, jnp.asarray(bv))))
+    np.testing.assert_array_equal(
+        pw, np.asarray(jh.hamming_pairwise(ja[:k], jb[:k])))

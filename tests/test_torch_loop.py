@@ -1,27 +1,26 @@
 """Loop closing of the port against the JAX package, module by module, on
 the same inputs: synthetic arrays made from a numpy seed, and the map the
 JAX engine builds in tests/test_gba.py (14 frames of the corridor world).
+The Sim3 and pose-graph pieces on synthetic arrays alone are in
+tests/test_torch_sim3.py, both engines with loop closing on in
+tests/test_torch_loop_engine.py.
 
 Tolerances:
   * vocabulary arrays identical; BoW words exact, BoW vectors 1e-6;
   * covisibility counts, candidate ids and cand_info exact (on the map
     as built, and with a staged revisit that yields loop candidates); DB
     scores 1e-6;
-  * Sim3 Lie maps 1e-5; horn.align 1e-4 (s, R, t), minimal sets included;
-  * sim3_ransac / match_for_sim3 with JAX's hypotheses injected: same
-    winner (inlier mask and count identical), s, R, t 1e-4;
-  * search_by_sim3 exact; optimize_sim3 1e-4, inlier count ±1;
+  * match_for_sim3 with JAX's hypotheses injected: same winner (inlier
+    mask and count identical), s, R, t 1e-4;
   * recount_matches exact, also with the map laid into 1024 keyframe
     slots and 131,072 point slots, where its whole-map search takes
     [PROJECTION_BLOCK, 1024] Hamming blocks, never a [131072, 1024] one;
-  * optimize_pose_graph 1e-3 on the tests/test_pose_graph.py drift case;
   * correct_loop poses 1e-3, points 1e-2; fuse_after_loop merge count
     exact, integer map fields identical on ≥ 99% of rows;
   * gba_chunk and merge poses 1e-3, points 1e-2 m — beyond 33 m from the
     first camera 3e-4 of that distance (float32 LM, other summation
     order: the depth of a far stereo point is the worst-conditioned
-    unknown; observation inlier masks identical on ≥ 99%);
-  * the engines (loop closing on): keyframe counts ±1, ATE within 0.03 m.
+    unknown; observation inlier masks identical on ≥ 99%).
 """
 
 import dataclasses
@@ -32,19 +31,14 @@ import numpy as np
 import pytest
 import torch
 
-from orbslam2_tpu.config import MONOCULAR, STEREO, SlamConfig
+from orbslam2_tpu.config import MONOCULAR, SlamConfig
 from orbslam2_tpu.models import keyframe_db as jdb
 from orbslam2_tpu.models import map_state as JM
 from orbslam2_tpu.models import vocabulary as jvoc
 from orbslam2_tpu.ops import bow as jbow
-from orbslam2_tpu.ops import horn as jhorn
-from orbslam2_tpu.ops import pose_graph as jpg
-from orbslam2_tpu.ops import sim3opt as jsim3opt
-from orbslam2_tpu.ops import sim3solver as jsim3
 from orbslam2_tpu.runtime import gba as jgba
 from orbslam2_tpu.runtime import loop_closing as jlc
 from orbslam2_tpu.runtime.slam import SlamEngine as JaxEngine
-from orbslam2_tpu.utils import camera as jcam
 from orbslam2_tpu.utils import lie as jlie
 from orbslam2_tpu.utils import synthetic
 from orbslam2_tpu_torch import config as tconfig
@@ -53,18 +47,10 @@ from orbslam2_tpu_torch.models import keyframe_db as tdb
 from orbslam2_tpu_torch.models import map_state as TM
 from orbslam2_tpu_torch.models import vocabulary as tvoc
 from orbslam2_tpu_torch.ops import bow as tbow
-from orbslam2_tpu_torch.ops import horn as thorn
 from orbslam2_tpu_torch.ops import matching as tmatching
-from orbslam2_tpu_torch.ops import pose_graph as tpg
-from orbslam2_tpu_torch.ops import sim3opt as tsim3opt
-from orbslam2_tpu_torch.ops import sim3solver as tsim3
 from orbslam2_tpu_torch.runtime import gba as tgba
 from orbslam2_tpu_torch.runtime import loop_closing as tlc
-from orbslam2_tpu_torch.runtime.slam import SlamEngine as TorchEngine
-from orbslam2_tpu_torch.utils import camera as tcam
-from orbslam2_tpu_torch.utils import lie as tlie
 from test_gba import _cfg as gba_cfg, _perturb
-from test_pose_graph import _chain_problem
 
 torch.set_num_threads(2)
 
@@ -133,39 +119,6 @@ def _covisible_pair(b):
     W = np.asarray(JM.covisibility(b["ms"]))
     k1 = b["live"][-1]
     return k1, int(np.argmax(W[k1]))
-
-
-# --------------------------------------------------------------- lie ------
-
-def test_sim3_lie_matches_jax():
-    rng = np.random.default_rng(0)
-    xi = rng.normal(0, 0.4, (64, 7)).astype(np.float32)
-    xi[:8, 6] = 0.0                 # σ = 0 (stereo)
-    xi[8:16, :3] = 0.0              # θ = 0
-    xi[16:20] = 0.0                 # identity
-    js, jR, jt = jlie.sim3_exp(jnp.asarray(xi))
-    ts, tR, tt = tlie.sim3_exp(T(xi))
-    for a, b in ((ts, js), (tR, jR), (tt, jt)):
-        np.testing.assert_allclose(A(a), np.asarray(b), atol=1e-5)
-    np.testing.assert_allclose(A(tlie.sim3_log(ts, tR, tt)),
-                               np.asarray(jlie.sim3_log(js, jR, jt)),
-                               atol=1e-5)
-    tinv = tlie.sim3_inv(ts, tR, tt)
-    jinv = jlie.sim3_inv(js, jR, jt)
-    tm = tlie.sim3_mul(ts, tR, tt, *tinv)
-    jm = jlie.sim3_mul(js, jR, jt, *jinv)
-    for a, b in zip(tinv + tm, jinv + jm):
-        np.testing.assert_allclose(A(a), np.asarray(b), atol=1e-5)
-    pts = rng.normal(0, 2, (64, 5, 3)).astype(np.float32)
-    np.testing.assert_allclose(
-        A(tlie.sim3_apply(ts, tR, tt, T(pts))),
-        np.asarray(jlie.sim3_apply(js, jR, jt, jnp.asarray(pts))), atol=1e-4)
-    tmat = tlie.sim3_to_mat(ts, tR, tt)
-    np.testing.assert_allclose(A(tmat), np.asarray(
-        jlie.sim3_to_mat(js, jR, jt)), atol=1e-5)
-    for a, b in zip(tlie.mat_to_sim3(tmat),
-                    jlie.mat_to_sim3(jnp.asarray(A(tmat)))):
-        np.testing.assert_allclose(A(a), np.asarray(b), atol=1e-5)
 
 
 # ----------------------------------------------------- vocabulary, BoW ----
@@ -349,31 +302,7 @@ def test_group_accumulated_scores_ties_match_jax():
         atol=1e-6)
 
 
-# ---------------------------------------------------------- horn, Sim3 ----
-
-@pytest.mark.parametrize("case", ["minimal", "many", "weighted", "fixed"])
-def test_horn_align_matches_jax(case):
-    rng = np.random.default_rng(3)
-    B, n = 64, (3 if case == "minimal" else 30)
-    src = rng.normal(0, 3, (B, n, 3)).astype(np.float32)
-    R = np.asarray(jlie.so3_exp(jnp.asarray(rng.normal(0, 0.5, (B, 3)),
-                                            jnp.float32)))
-    dst = (1.3 * np.einsum("bij,bnj->bni", R, src)
-           + rng.normal(0, 1, (B, 1, 3))
-           + rng.normal(0, 0.02, (B, n, 3))).astype(np.float32)
-    w = (rng.random((B, n)) < 0.7).astype(np.float32) \
-        if case == "weighted" else None
-    ws = case != "fixed"
-    j = jhorn.align(jnp.asarray(src), jnp.asarray(dst),
-                    None if w is None else jnp.asarray(w), with_scale=ws)
-    t = thorn.align(T(src), T(dst), None if w is None else T(w),
-                    with_scale=ws)
-    for a, b in zip(t, j):
-        np.testing.assert_allclose(A(a), np.asarray(b), atol=1e-4)
-    np.testing.assert_allclose(
-        A(thorn.apply(*t, T(src))),
-        np.asarray(jhorn.apply(*j, jnp.asarray(src))), atol=1e-3)
-
+# ------------------------------------------------------ Sim3 matching ----
 
 def _jax_hypotheses(key, valid, n_hyp, size):
     """JAX's RANSAC draws, exactly as sim3solver.py:45-48 / pnp.py:165-168
@@ -391,41 +320,6 @@ def _assert_sim3_equal(t, j):
     assert bool(t.ok) == bool(j.ok)
     for a, b in ((t.s12, j.s12), (t.R12, j.R12), (t.t12, j.t12)):
         np.testing.assert_allclose(A(a), np.asarray(b), atol=1e-4)
-
-
-@pytest.mark.parametrize("fix_scale", [False, True])
-def test_sim3_ransac_matches_jax(fix_scale):
-    rng = np.random.default_rng(4)
-    jc = jcam.Camera.from_config(gba_cfg().camera)
-    tc = tcam.Camera.from_config(port_cfg(gba_cfg()).camera)
-    n = 60
-    pts1 = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
-                     rng.uniform(5, 15, n)], -1).astype(np.float32)
-    R = np.asarray(jlie.so3_exp(jnp.asarray([0.05, 0.3, -0.1])))
-    s = 1.0 if fix_scale else 1.3
-    pts2 = (((pts1 - np.array([0.4, -0.2, 0.6])) @ R) / s
-            + rng.normal(0, 0.005, (n, 3))).astype(np.float32)
-    pts2[rng.choice(n, 12, replace=False)] += 1.5
-    valid = rng.random(n) < 0.9
-    key = jax.random.PRNGKey(1)
-    j = jsim3.sim3_ransac(jc, jnp.asarray(pts1), jnp.asarray(pts2),
-                          jnp.asarray(valid), key, fix_scale=fix_scale)
-    idx = _jax_hypotheses(key, valid, 128, 3)
-    t = tsim3.sim3_ransac(tc, T(pts1), T(pts2), T(valid), None,
-                          fix_scale=fix_scale, idx=T(idx))
-    _assert_sim3_equal(t, j)
-    assert bool(t.ok)
-
-
-def test_sim3_ransac_without_valid_matches_is_not_ok():
-    """No valid correspondence: JAX samples anyway and reports ok=False;
-    the port's draws must not raise (all-zero multinomial weights)."""
-    tc = tcam.Camera.from_config(port_cfg(gba_cfg()).camera)
-    g = torch.Generator().manual_seed(0)
-    pts = torch.rand(40, 3) + 2.0
-    res = tsim3.sim3_ransac(tc, pts, pts, torch.zeros(40, dtype=torch.bool),
-                            g, fix_scale=True)
-    assert not bool(res.ok) and int(res.n_inliers) == 0
 
 
 def _sim3_inputs(b, kf1, kf2):
@@ -459,76 +353,7 @@ def test_match_for_sim3_matches_jax(built):
     assert int((m >= 0).sum()) >= 20
 
 
-# -------------------------------------------------- sim3opt, recount ------
-
-def test_search_by_sim3_matches_jax():
-    rng = np.random.default_rng(5)
-    jc = jcam.Camera.from_config(gba_cfg().camera)
-    tc = tcam.Camera.from_config(port_cfg(gba_cfg()).camera)
-    n = 128
-    p1c = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
-                    rng.uniform(4, 12, n)], -1).astype(np.float32)
-    R12 = jlie.so3_exp(jnp.asarray([0.02, 0.14, 0.0]))
-    t12 = jnp.asarray([0.3, 0.1, 0.2], jnp.float32)
-    s21, R21, t21 = jlie.sim3_inv(jnp.float32(1.0), R12, t12)
-    perm = rng.permutation(n)
-    p2c = np.asarray(s21 * (jnp.asarray(p1c) @ R21.T) + t21)[perm]
-    desc1 = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
-    desc2 = desc1[perm].copy()
-    desc2[::7, 0] ^= np.uint32(0xFF)         # some near-misses
-    lvl1 = rng.integers(0, 3, n).astype(np.int32)
-    lvl2 = lvl1[perm]
-    uv1 = np.asarray(jsim3opt._project(jc, jnp.asarray(p1c)))
-    uv2 = np.asarray(jsim3opt._project(jc, jnp.asarray(p2c)))
-    valid = rng.random(n) < 0.9
-    d1 = np.linalg.norm(p1c, axis=-1)
-    d2 = np.linalg.norm(p2c, axis=-1)
-    args = [uv1, lvl1, desc1, valid, p1c, valid, uv2, lvl2, desc2, valid,
-            p2c, valid, 0.3 * d1, 1.5 * d1, 0.3 * d2, 1.5 * d2]
-    jm, jn = jsim3opt.search_by_sim3(
-        jc, *[jnp.asarray(a) for a in args], jnp.float32(1.0), R12, t12,
-        1.2, 8)
-    tm, tn = tsim3opt.search_by_sim3(
-        tc, *[T(a) for a in args], torch.tensor(1.0), T(R12), T(t12),
-        1.2, 8)
-    np.testing.assert_array_equal(A(tm), np.asarray(jm))
-    assert int(tn) == int(jn) >= 25
-
-
-@pytest.mark.parametrize("fix_scale", [False, True])
-def test_optimize_sim3_matches_jax(fix_scale):
-    rng = np.random.default_rng(6)
-    jc = jcam.Camera.from_config(gba_cfg().camera)
-    tc = tcam.Camera.from_config(port_cfg(gba_cfg()).camera)
-    n = 200
-    p1c = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
-                    rng.uniform(4, 12, n)], -1).astype(np.float32)
-    R12 = jlie.so3_exp(jnp.asarray([0.05, 0.17, 0.03]))
-    t12 = jnp.asarray([0.4, -0.2, 0.3], jnp.float32)
-    s12 = jnp.float32(1.0 if fix_scale else 1.15)
-    s21, R21, t21 = jlie.sim3_inv(s12, R12, t12)
-    p2c = np.asarray(s21 * (jnp.asarray(p1c) @ R21.T) + t21)
-    uv1 = np.asarray(jsim3opt._project(jc, jnp.asarray(p1c))) \
-        + rng.normal(0, 0.3, (n, 2)).astype(np.float32)
-    uv2 = np.asarray(jsim3opt._project(jc, jnp.asarray(p2c))) \
-        + rng.normal(0, 0.3, (n, 2)).astype(np.float32)
-    uv2[:15] += 30.0                         # outliers
-    inv_s2 = (1.0 / 1.2 ** (2 * rng.integers(0, 3, n))).astype(np.float32)
-    valid = rng.random(n) < 0.95
-    R0 = jlie.so3_exp(jnp.asarray([0.03, -0.02, 0.01])) @ R12
-    t0 = t12 + jnp.asarray([0.2, 0.1, -0.2], jnp.float32)
-    s0 = s12 * (1.0 if fix_scale else 1.08)
-    args = [p1c, p2c, uv1.astype(np.float32), uv2.astype(np.float32),
-            inv_s2, inv_s2, valid]
-    j = jsim3opt.optimize_sim3(jc, *[jnp.asarray(a) for a in args],
-                               s0, R0, t0, fix_scale=fix_scale)
-    t = tsim3opt.optimize_sim3(tc, *[T(a) for a in args], T(s0), T(R0),
-                               T(t0), fix_scale=fix_scale)
-    for a, b in ((t.s12, j.s12), (t.R12, j.R12), (t.t12, j.t12)):
-        np.testing.assert_allclose(A(a), np.asarray(b), atol=1e-4)
-    assert abs(int(t.n_inliers) - int(j.n_inliers)) <= 1
-    assert (A(t.inlier) != np.asarray(j.inlier)).sum() <= 1
-
+# ----------------------------------------------------------- recount ------
 
 def test_refine_and_recount_match_jax(built):
     b = built
@@ -614,26 +439,7 @@ def test_recount_matches_at_1024_slots_blocks_and_matches_jax(
     assert int(t_big) == int(j_big) == int(j_small) >= 40
 
 
-# ---------------------------------------------------- pose graph ----------
-
-@pytest.mark.parametrize("fix_scale", [True, False])
-def test_optimize_pose_graph_matches_jax(fix_scale):
-    prob, poses_true, _ = _chain_problem(np.random.default_rng(0))
-    if not fix_scale:
-        K = prob.s.shape[0]
-        prob = prob._replace(s=jnp.asarray(
-            (1.01 ** np.arange(K)).astype(np.float32)))
-    js, jR, jt = jpg.optimize_pose_graph(prob, n_iters=15, cg_iters=48,
-                                         fix_scale=fix_scale)
-    tprob = tpg.PoseGraphProblem(*[T(np.asarray(x)) for x in prob])
-    ts, tR, tt = tpg.optimize_pose_graph(tprob, n_iters=15, cg_iters=48,
-                                         fix_scale=fix_scale)
-    for a, c in ((ts, js), (tR, jR), (tt, jt)):
-        np.testing.assert_allclose(A(a), np.asarray(c), atol=1e-3)
-    np.testing.assert_allclose(
-        A(tpg.se3_from_sim3(ts, tR, tt)),
-        np.asarray(jpg.se3_from_sim3(js, jR, jt)), atol=1e-3)
-
+# --------------------------------------------------- loop correction ------
 
 @pytest.mark.parametrize("s12", [1.0, 1.1], ids=["s12=1.0", "s12=1.1"])
 def test_correct_loop_and_fuse_match_jax(built, s12):
@@ -791,84 +597,3 @@ def test_gba_snapshot_unchanged_by_later_map_updates(built):
     for k, v in snap._asdict().items():
         assert torch.equal(v, before[k]), k
     assert mgr.poll_and_merge(ms)[1]
-
-
-# ---------------------------------------------------------- the engines ---
-
-CAM_KW = dict(fx=450.0, fy=450.0, cx=320.0, cy=240.0, bf=150.0, width=640,
-              height=480, fps=10.0, th_depth=60.0)
-
-
-def _ate(poses_est, poses_gt, rebase=None):
-    errs = []
-    for Te, Tg in zip(poses_est, poses_gt):
-        if Te is None:
-            continue
-        if rebase is not None:
-            Te = Te @ rebase
-        errs.append(np.sum((-Te[:3, :3].T @ Te[:3, 3]
-                            + Tg[:3, :3].T @ Tg[:3, 3]) ** 2))
-    return float(np.sqrt(np.mean(errs))), len(errs)
-
-
-def _engines(cap, n_features, voc):
-    from orbslam2_tpu.config import (CameraConfig, CapacityConfig,
-                                     OrbConfig)
-    cfg = SlamConfig(camera=CameraConfig(**CAM_KW),
-                     orb=OrbConfig(n_features=n_features),
-                     capacity=CapacityConfig(**cap), sensor=STEREO)
-    return (JaxEngine(cfg, vocabulary=voc),
-            TorchEngine(port_cfg(cfg), device="cpu",
-                        vocabulary=port_voc(voc)))
-
-
-def test_port_engine_with_loop_closing_tracks_like_jax():
-    """Both engines with loop closing on, over the 10-frame corridor of
-    tests/test_torch_slice.py."""
-    voc = jvoc.default_vocabulary()
-    jeng, teng = _engines(dict(max_keyframes=16, max_map_points=4096,
-                               local_ba_keyframes=8, local_ba_points=1024),
-                          400, voc)
-    assert teng.loop_closer is not None
-    rng = np.random.default_rng(0)
-    world = synthetic.make_world(rng)
-    poses = synthetic.straight_trajectory(10, step=0.25)
-    for i, Tcw in enumerate(poses):
-        left, right = synthetic.render_world_stereo(
-            world, jeng.cfg.camera, Tcw, rng, noise=1.0)
-        assert jeng.track_stereo(left, right, 0.1 * i) is not None, i
-        assert teng.track_stereo(left, right, 0.1 * i) is not None, i
-    assert jeng.finish_gba() is False and teng.finish_gba() is False
-    j_ate, jn = _ate(jeng.frame_poses(), poses)
-    t_ate, tn = _ate(teng.frame_poses(), poses)
-    assert jn == tn == len(poses)
-    assert abs(teng.stats["kf_inserted"] - jeng.stats["kf_inserted"]) <= 1
-    assert abs(t_ate - j_ate) < 0.03, (t_ate, j_ate)
-    # every live keyframe but the stereo-initialization one is in the DB
-    live = set(np.where(A(teng.ms.kf_valid))[0].tolist())
-    in_db = set(np.where(A(teng.loop_closer.db.valid))[0].tolist())
-    assert in_db == live - {0}, (in_db, live)
-
-
-@pytest.mark.slow
-def test_port_engine_closes_the_orbit_loop_like_jax():
-    """tests/test_loop_closing.py's outward orbit (1.25 turns, 72 frames):
-    both engines close at least one loop and end below 0.5 m ATE."""
-    from test_loop_closing import orbit_scene, outward_orbit
-    voc = jvoc.default_vocabulary()
-    jeng, teng = _engines(dict(max_keyframes=64, max_map_points=1 << 14,
-                               local_ba_keyframes=8, local_ba_points=2048),
-                          600, voc)
-    rng = np.random.default_rng(0)
-    scene = orbit_scene(rng)
-    poses = outward_orbit(72, radius=4.0, z_center=10.0, turns=1.25)
-    for i, Tcw in enumerate(poses):
-        left, right = synthetic.render_stereo(scene, jeng.cfg.camera, Tcw,
-                                              rng, 1.0)
-        jeng.track_stereo(left, right, 0.1 * i)
-        teng.track_stereo(left, right, 0.1 * i)
-    for eng in (jeng, teng):
-        assert eng.stats["loops_closed"] >= 1, eng.stats
-        eng.finish_gba()
-        ate, n = _ate(eng.frame_poses(), poses, rebase=poses[0])
-        assert n > 0.85 * len(poses) and ate < 0.5, (ate, n, eng.stats)

@@ -28,7 +28,7 @@ from orbslam2_tpu_torch.runtime.slam import SlamEngine as TorchSlamEngine
 from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
 from test_torch_mono import (JCFG, TCFG, engines_track_alike,  # noqa: F401
                              sequence)
-from test_torch_windowed import TINY, W, Script
+from test_torch_windowed_rules import TINY, W, Script
 
 torch.set_num_threads(2)
 
