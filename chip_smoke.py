@@ -42,26 +42,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  (site window/track_ref_kf), and each of its matching calls,
                  replayed with the plain version, gives the same output;
                  never lost, ATE < 0.15 m;
- 11. bench SLAM — bench.py's stereo SLAM leg: the bench world and its
-                 walk, WindowedSlamEngine(window=4, loop closing on), 28
+ 11. bench SLAM — bench.py's stereo SLAM leg, run by the port's
+                 orbslam2_tpu_torch/tools/bench.py (slam_leg) over bench.py's
+                 frames (bench_frames: one default_rng(0) draws the world,
+                 then the stereo, mono and RGB-D walks in bench.py's order;
+                 phases 12 and 14 take theirs from the same draw):
+                 WindowedSlamEngine(window=4, loop closing on), 28
                  warm-up frames, then one pass of 48 frames (bench.py:
                  three; cut to keep the run inside its limit),
                  each ending in flush() and a synchronize: fps per pass and
                  their median, ms per frame, keyframes per frame, ATE over
                  bench.py's first 76 frames (< 0.1127 m, the cv2 proxy's),
                  never lost, hamming_top2 launches by path;
- 12. bench LOC — bench.py's stereo LOC leg: make_window_tracker(cfg, 8) on
+ 12. bench LOC — bench.py's stereo LOC leg (tools/bench.py's loc_leg):
+                 make_window_tracker(cfg, 8) on
                  the phase-11 map over frames 28-35, 1 window a pass
                  (bench.py runs 24; cut to keep the run inside its limit),
-                 three passes: fps; every frame ≥ 30 map inliers, ATE over
-                 the window < 0.1127 m; then one LOC window and the SLAM
-                 engine's next window under torch.profiler (kernels and
-                 device ms per frame);
+                 three passes, every window from the SLAM estimate of
+                 frames 27 and 26: fps; every frame ≥ 30 map inliers, ATE
+                 over the window < 0.1127 m; then one LOC window and the
+                 SLAM engine's next window under torch.profiler (kernels,
+                 device ms and cudaStreamSynchronize calls per frame);
  13. RGB-D     — SlamEngine(RGBD, loop closing off) over phase 4's shaken
                  corridor rendered with depth: never lost, ATE < 0.15 m,
                  hamming_top2 launched from track_ref_kf, each of those
                  matching calls replayed with the plain version equal;
- 14. bench RGB-D — bench.py's RGB-D leg: WindowedSlamEngine(window=4, loop
+ 14. bench RGB-D — bench.py's RGB-D leg (tools/bench.py's rgbd_leg) over
+                 bench.py's RGB-D frames: WindowedSlamEngine(window=4, loop
                  closing on), 36 frames at 0.12 m, 12 warm-up, 24 timed
                  (bench.py: 60 and 48; cut to keep the run inside its
                  limit) ending in flush() and a synchronize: fps, keyframes per
@@ -90,15 +97,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  and the frames after it; ends OK, similarity-aligned ATE
                  < 0.03 × path length; track_ref_kf's matching calls
                  replayed with the plain version;
- 18. bench mono — bench.py's mono leg: WindowedSlamEngine(MONOCULAR,
-                 window=4, loop closing on), the bench world along
-                 look_ahead_pose((0.18 i, 0, 0.04 i)), 28 warm-up frames,
-                 two passes of 48 each ending in flush() and a
-                 synchronize: fps per pass, ms and keyframes a frame, loops
-                 closed, similarity-aligned ATE, launches by site (every
-                 matching call that launched the kernel replayed with the
-                 plain version), one window under torch.profiler; must
-                 not end LOST;
+ 18. bench mono — bench.py's mono leg (tools/bench.py's mono_leg):
+                 WindowedSlamEngine(MONOCULAR, window=4, loop closing on)
+                 over bench.py's mono frames, 28 warm-up frames, two
+                 passes of 48 each ending in flush() and a synchronize:
+                 fps per pass, ms and keyframes a frame, loops closed,
+                 similarity-aligned ATE, launches by site (every matching
+                 call that launched the kernel replayed with the plain
+                 version), the leg's keys as the bench reports them (null
+                 rates where the engine ended LOST), one window under
+                 torch.profiler; initialized by frame 3, every warm-up
+                 frame tracked;
  19. system    — the System facade (runtime/system.py) at the bench widths,
                  loop closing on, no device given: track_stereo over the
                  first 24 frames of phase 4's shaken corridor (median ms a
@@ -114,8 +123,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
                  change_calibration to slightly other intrinsics and 4
                  frames more; System(RGBD).track_ird over 6 frames of
                  phase 13's depth corridor (HPose within 0.15 m of the
-                 remapped truth); tools.replay.run_synthetic_stereo at the
-                 default capacity over 12 frames (median and mean ms);
+                 remapped truth); the replay harness
+                 (orbslam2_tpu_torch/tools/benchmark.py's main, --kind
+                 synthetic: tools.replay.run_synthetic_stereo at the
+                 default capacity) over 12 frames, its JSON line printed
+                 (median and mean ms);
                  track_ref_kf's
                  matching calls replayed with the plain version;
  20. async     — AsyncSlamEngine (runtime/pipeline.py: the mapping worker
@@ -250,6 +262,8 @@ import time
 
 import numpy as np
 import torch
+
+from orbslam2_tpu_torch.tools import bench
 
 # tolerance of every kernel-vs-plain comparison: integer outputs, exact
 MAX_ABS_ERR = 0
@@ -474,26 +488,6 @@ def phase_kernel_device(smi, main_inputs, k, early):
             "sm_clock_mhz": clock}
 
 
-def bench_config():
-    from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
-                                           OrbConfig, STEREO, SlamConfig)
-    return SlamConfig(
-        camera=CameraConfig(fx=450.0, fy=450.0, cx=320.0, cy=240.0,
-                            bf=150.0, width=640, height=480, fps=10.0,
-                            th_depth=60.0),
-        orb=OrbConfig(n_features=1000),
-        capacity=CapacityConfig(max_keyframes=128, max_map_points=1 << 14,
-                                local_ba_keyframes=8, local_ba_points=2048),
-        sensor=STEREO)
-
-
-def ate(poses_est, poses_gt):
-    errs = [np.sum((-Te[:3, :3].T @ Te[:3, 3]
-                    + Tg[:3, :3].T @ Tg[:3, 3]) ** 2)
-            for Te, Tg in zip(poses_est, poses_gt) if Te is not None]
-    return float(np.sqrt(np.mean(errs)))
-
-
 def shaken_trajectory():
     """The bench corridor walk, with the camera yawed at SHAKE_FRAME."""
     from orbslam2_tpu_torch.utils import synthetic
@@ -516,39 +510,6 @@ def _timed(fn, log):
         return out
     run.__wrapped__ = fn
     return run
-
-
-def _device_events(prof):
-    """(name, device µs) of every device event of a finished profile, from
-    the raw kineto events: ``prof.events()`` first builds a tree over all
-    of a window's events, CPU ones included, which takes longer than the
-    window itself."""
-    from torch.autograd import DeviceType
-
-    return [(e.name(), e.duration_ns() / 1e3)
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA
-            and not e.is_hidden_event()]
-
-
-def _profiled(fn):
-    """(CUDA kernels launched, their summed device ms, wall ms,
-    ``cudaStreamSynchronize`` calls) of one call of ``fn`` under
-    torch.profiler; the profiler's own cost is in the wall time, so
-    compare device ms with an unprofiled wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [us for _, us in _device_events(prof)]
-    syncs = sum(e.name() == "cudaStreamSynchronize"
-                for e in prof.profiler.kineto_results.events())
-    return len(kernels), sum(kernels) / 1e3, wall_ms, syncs
 
 
 @contextlib.contextmanager
@@ -601,7 +562,7 @@ def _top_kernels(fn, n=3):
         fn()
         torch.cuda.synchronize()
     by_name = {}
-    for name, us in _device_events(prof):
+    for name, us in bench.device_events(prof):
         t, c = by_name.get(name, (0.0, 0))
         by_name[name] = (t + us / 1e3, c + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
@@ -615,7 +576,7 @@ def phase_slice(smi):
     from orbslam2_tpu_torch.runtime.slam import SlamEngine
     from orbslam2_tpu_torch.utils import render_pool, synthetic
 
-    cfg = bench_config()
+    cfg = bench.bench_config()
     rng = np.random.default_rng(0)
     world = synthetic.make_world(rng)
     poses_gt = shaken_trajectory()
@@ -653,7 +614,7 @@ def phase_slice(smi):
     engine_launches = hamming_top2.launches
     by_site = dict(hamming_top2.launches_by_site)
     eng.fns = fns
-    err = ate(eng.frame_poses(), poses_gt)
+    err = bench.ate(eng.frame_poses(), poses_gt)
     n_pts = len(eng.map_points())
     n_kf = eng.stats["kf_inserted"]
     print(f"[slice] {N_FRAMES} frames: {N_FRAMES / total_s:.2f} fps "
@@ -745,7 +706,7 @@ def phase_loop(smi):
     from orbslam2_tpu_torch.runtime.slam import SlamEngine
     from orbslam2_tpu_torch.utils import render_pool, synthetic
 
-    cfg = bench_config()
+    cfg = bench.bench_config()
     rng = np.random.default_rng(0)
     scene = orbit_scene(rng, z_center=ORBIT_Z)
     poses_gt = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS)
@@ -973,14 +934,34 @@ def live_reloc_call(eng, attempt, args, state):
         raise AssertionError("reloc_attempt: kernel and plain differ")
 
 
-# phases 10-12: the bench.py stereo legs (bench.py:61-64, 86-196)
-# bench.py runs three stereo passes and 24 LOC windows a pass; the script
-# runs fewer, to stay well inside its time limit
-BENCH_WARMUP, BENCH_PASS, BENCH_PASSES = 28, 48, 1
-BENCH_FRAMES = BENCH_WARMUP + BENCH_PASSES * BENCH_PASS
-BENCH_ORACLE_FRAMES = 76       # the span of bench.py's ATE (warm-up + 1 pass)
-CV2_PROXY_ATE = 0.1127         # the cv2 proxy's ATE there (BENCH_r05)
-LOC_WINDOW, LOC_WINDOWS = 8, 1      # bench.py: 24 windows a pass
+# phases 11, 12, 14 and 18: the legs of orbslam2_tpu_torch/tools/bench.py
+# (the port of bench.py; 11, 12 and 14 on bench.py's frames), at depths
+# cut to keep the run inside its time limit: bench.py runs three SLAM
+# passes, 24 LOC windows a pass and 60 RGB-D frames
+BENCH_DEPTHS = bench.Depths(slam_passes=1, loc_windows=1, rgbd_frames=36)
+BENCH_FRAMES = BENCH_DEPTHS.oracle_frames()   # 76: also bench.py's ATE span
+RGBD_FRAMES = BENCH_DEPTHS.rgbd_frames
+
+
+def _log(smi):
+    return lambda line: print(f"{line} ({smi})", flush=True)
+
+
+def bench_sequence(smi):
+    """bench.py's frames (tools/bench.py's ``bench_frames``: one
+    ``default_rng(0)`` draws the world, then the 172 stereo, 124 mono and
+    60 RGB-D frames) as far as phases 11, 12, 14 and 18 use them: 80
+    stereo frames (phase 12 tracks 76-79 under the profiler), the 124
+    mono frames and 40 RGB-D frames (phase 15 tracks 36-39)."""
+    t0 = time.perf_counter()
+    n_mono = bench.DEPTHS.lengths()[1]
+    fr = bench.bench_frames(bench.bench_config(), bench.DEPTHS,
+                            counts=(BENCH_FRAMES + 4, n_mono,
+                                    RGBD_FRAMES + 4))
+    print(f"[bench] bench.py's sequence: {len(fr.stereo)} stereo, "
+          f"{len(fr.mono)} mono and {len(fr.rgbd)} RGB-D frames rendered "
+          f"in {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    return fr
 
 
 def _record_matches(*sites):
@@ -1025,7 +1006,7 @@ def phase_windowed_fallback(smi, frames):
     from orbslam2_tpu_torch.runtime import tracking
     from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
 
-    cfg = bench_config()
+    cfg = bench.bench_config()
     poses_gt = shaken_trajectory()
     # per-layer wall ms: the window tracker builds its own frontend and
     # tracking steps, so the builders are wrapped while the engine is made
@@ -1066,7 +1047,7 @@ def phase_windowed_fallback(smi, frames):
     by_site = dict(ht2.hamming_top2.launches_by_site)
     est = eng.frame_poses()
     n_lost = sum(T is None for T in est)
-    err = ate(est, poses_gt)
+    err = bench.ate(est, poses_gt)
     same = _replay_plain(records)
     print(f"[windowed] {N_FRAMES} jolted corridor frames in windows of "
           f"{eng.window}: {N_FRAMES / dt:.2f} fps, KFs inserted "
@@ -1107,137 +1088,55 @@ def _replay_plain(records):
     return same
 
 
-def phase_bench_slam(smi):
-    """Phase 11: bench.py's stereo SLAM leg on the port (bench.py:86-121):
-    WindowedSlamEngine(window=4), loop closing on, 28 warm-up frames,
-    then BENCH_PASSES passes of 48 frames (bench.py runs three), each
-    ending in flush() and a synchronize."""
-    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
-                                                     reset_launch_counts)
-    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
-    from orbslam2_tpu_torch.utils import render_pool, synthetic
-
-    cfg = bench_config()
-    rng = np.random.default_rng(0)
-    world = synthetic.make_world(rng)
-    # BENCH_FRAMES for the leg, then one window more for phase 12's profile
-    poses_gt = synthetic.straight_trajectory(BENCH_FRAMES + 4, step=0.25)
-    t0 = time.perf_counter()
-    frames = render_pool.render_frames(synthetic.render_world_stereo, world,
-                                       cfg.camera, poses_gt, rng)
-    render_s = time.perf_counter() - t0
-    eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
-    reset_launch_counts()              # the bench SLAM leg's count
-    t0 = time.perf_counter()
-    for i in range(BENCH_WARMUP):
-        eng.track_stereo(*frames[i], 0.1 * i)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    pass_fps, kf_counts, start = [], [], BENCH_WARMUP
-    for _ in range(BENCH_PASSES):
-        kf_before = eng.stats["kf_inserted"]
-        t0 = time.perf_counter()
-        for i in range(start, start + BENCH_PASS):
-            eng.track_stereo(*frames[i], 0.1 * i)
-        eng.flush()
-        torch.cuda.synchronize()
-        pass_fps.append(BENCH_PASS / (time.perf_counter() - t0))
-        kf_counts.append(eng.stats["kf_inserted"] - kf_before)
-        start += BENCH_PASS
-    by_site = dict(hamming_top2.launches_by_site)
-    est = eng.frame_poses()
-    n_lost = sum(T is None for T in est)
-    ate_oracle = ate(est[:BENCH_ORACLE_FRAMES],
-                     poses_gt[:BENCH_ORACLE_FRAMES])
-    ate_all = ate(est, poses_gt[:BENCH_FRAMES])
-    fps = float(np.median(pass_fps))
-    print(f"[bench-slam] {BENCH_FRAMES} frames (rendered with 4 more in "
-          f"{render_s:.1f} "
-          f"s; warm-up {BENCH_WARMUP} frames {warm_s:.1f} s): pass fps "
-          f"{[round(f, 3) for f in pass_fps]}, median {fps:.3f} fps = "
-          f"{1e3 / fps:.1f} ms/frame, KFs per frame "
-          f"{np.median(kf_counts) / BENCH_PASS:.4f} (per pass {kf_counts}), "
-          f"KFs inserted {eng.stats['kf_inserted']}, live {eng.n_kfs}, "
-          f"loops closed {eng.stats['loops_closed']}, lost {n_lost}, ATE "
-          f"{ate_oracle:.4f} m over bench.py's first {BENCH_ORACLE_FRAMES} "
-          f"frames (cv2 proxy {CV2_PROXY_ATE}), {ate_all:.4f} m over all; "
-          f"hamming_top2 launches by path {by_site} ({smi})", flush=True)
-    if n_lost or not ate_oracle < CV2_PROXY_ATE:
-        raise AssertionError(f"bench-slam: lost {n_lost}, ATE {ate_oracle} "
-                             f"(need < {CV2_PROXY_ATE})")
-    return eng, frames, poses_gt, by_site, {
-        "slam_fps": fps, "pass_fps": pass_fps, "ate_m": ate_oracle}
+def phase_bench_slam(smi, fr):
+    """Phase 11: tools/bench.py's stereo SLAM leg (bench.py:102-123) over
+    bench.py's frames: WindowedSlamEngine(window=4), loop closing on, 28
+    warm-up frames, then one pass of 48 (bench.py runs three), ending in
+    flush() and a synchronize; never lost, ATE over bench.py's first 76
+    frames under the cv2 proxy's."""
+    res = bench.slam_leg(bench.bench_config(), fr.stereo, fr.stereo_gt,
+                         BENCH_DEPTHS, log=_log(smi))
+    bench.check_slam(res)
+    return res
 
 
-def phase_bench_loc(eng, frames, poses_gt, smi):
-    """Phase 12: bench.py's stereo LOC leg (bench.py:160-196):
-    make_window_tracker(cfg, 8) on the phase-11 map over frames 28-35,
-    LOC_WINDOWS windows a pass (bench.py runs 24), three passes.  Each
-    window starts from the SLAM estimate of frames 27 and 26 and the map
-    points of frame 27's reference keyframe (bench.py chains windows over
-    one repeated buffer, which sends the tracker 1.75 m back at every
-    window boundary).  Last, one LOC window and the SLAM engine's next
-    window under torch.profiler: kernels and device ms per frame."""
-    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
-                                                     reset_launch_counts)
-    from orbslam2_tpu_torch.runtime import streaming
-
-    first = BENCH_WARMUP
-    track = streaming.make_window_tracker(eng.cfg, LOC_WINDOW)
-    if track.device.type != "cuda":
-        raise AssertionError(f"bench-loc: the tracker chose {track.device}")
-    est = eng.frame_poses()
-    ref = eng.trajectory[first - 1].ref_kf
-    state_T = torch.as_tensor(np.stack([est[first - 1], est[first - 2]]),
-                              dtype=torch.float32, device="cuda")
-    assoc0 = eng.ms.kf_mp[ref]
-    flat = torch.from_numpy(streaming.pack_window_uint8(
-        frames[first:first + LOC_WINDOW])).cuda()
-    res = track(eng.ms, flat, state_T, assoc0, ref)      # first use
-    torch.cuda.synchronize()
-    reset_launch_counts()              # the LOC leg's count
-    rates, worst = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(LOC_WINDOWS):
-            sm = track(eng.ms, flat, state_T, assoc0, ref).summaries.cpu()
-            worst.append(int(sm[:, 34].min()))
-        rates.append(LOC_WINDOW * LOC_WINDOWS / (time.perf_counter() - t0))
-    by_site = dict(hamming_top2.launches_by_site)
-    fps = float(np.median(rates))
-    sm = res.summaries.cpu().numpy()
-    est_loc = [sm[i, :16].reshape(4, 4) for i in range(LOC_WINDOW)]
-    err = ate(est_loc, poses_gt[first:first + LOC_WINDOW])
-    print(f"[bench-loc] {LOC_WINDOWS} windows of {LOC_WINDOW} a pass: pass "
-          f"fps {[round(f, 3) for f in rates]}, median {fps:.3f} fps = "
-          f"{1e3 / fps:.1f} ms/frame; map inliers per frame "
-          f"{sm[:, 34].astype(int).tolist()} (fewest in any window "
-          f"{min(worst)}), ATE {err:.4f} m over the window; hamming_top2 "
-          f"launches {by_site} ({smi})", flush=True)
-    if min(worst) < eng.cfg.tracking.local_map_tracking_threshold:
-        raise AssertionError(f"bench-loc: a frame tracked only {min(worst)} "
-                             f"map inliers")
-    if not err < CV2_PROXY_ATE:
-        raise AssertionError(f"bench-loc: ATE {err} m")
+def phase_bench_loc(slam, fr, smi):
+    """Phase 12: tools/bench.py's stereo LOC leg (bench.py:160-190) on the
+    phase-11 map over frames 28-35, 1 window a pass (bench.py runs 24),
+    three passes, each window from the SLAM estimate of frames 27 and 26;
+    every frame ≥ 30 map inliers, ATE over the window under the cv2
+    proxy's.  Last, one LOC window and the SLAM engine's next window
+    (frames 76-79, tracked and retired) under torch.profiler: kernels
+    and device ms per frame, ``cudaStreamSynchronize`` calls, none in a
+    Hamming matrix."""
+    eng = slam["engine"]
+    loc = bench.loc_leg(eng, fr.stereo, fr.stereo_gt, BENCH_DEPTHS,
+                        log=_log(smi))
+    if loc["tracker"].device.type != "cuda":
+        raise AssertionError(f"bench-loc: the tracker chose "
+                             f"{loc['tracker'].device}")
+    bench.check_loc(loc, eng.cfg)
     # after every timed pass: one LOC window, then the SLAM engine's next
-    # window (frames 172-175, tracked and retired), under the profiler
+    # window, under the profiler
     t_prof = time.perf_counter()
-    n_loc, dev_loc, wall_loc, _ = _profiled(
-        lambda: track(eng.ms, flat, state_T, assoc0, ref).summaries.cpu())
+    n_loc, dev_loc, wall_loc, _ = bench.profiled(lambda: loc["tracker"](
+        eng.ms, loc["flat"], loc["state_T"], loc["assoc0"],
+        loc["ref"]).summaries.cpu())
 
     def slam_window():
         for i in range(BENCH_FRAMES, BENCH_FRAMES + 4):
-            eng.track_stereo(*frames[i], 0.1 * i)
+            eng.track_stereo(*fr.stereo[i], 0.1 * i)
         eng.flush()
 
     kf0 = eng.stats["kf_inserted"]
     with _no_hamming_syncs() as n_hamming:
-        n_slam, dev_slam, wall_slam, syncs = _profiled(slam_window)
+        n_slam, dev_slam, wall_slam, syncs = bench.profiled(slam_window)
     prof_s = time.perf_counter() - t_prof
-    print(f"[profile] LOC window of {LOC_WINDOW}: {n_loc / LOC_WINDOW:.0f} "
-          f"kernels and {dev_loc / LOC_WINDOW:.1f} ms of device time a "
-          f"frame ({wall_loc / LOC_WINDOW:.1f} ms wall under the profiler; "
-          f"busy {100 * dev_loc / LOC_WINDOW * fps / 1e3:.1f}% of the "
+    w, fps = bench.WINDOW, loc["fps"]
+    print(f"[profile] LOC window of {w}: {n_loc / w:.0f} "
+          f"kernels and {dev_loc / w:.1f} ms of device time a "
+          f"frame ({wall_loc / w:.1f} ms wall under the profiler; "
+          f"busy {100 * dev_loc / w * fps / 1e3:.1f}% of the "
           f"unprofiled {1e3 / fps:.1f} ms); SLAM window of 4 with "
           f"{eng.stats['kf_inserted'] - kf0} keyframe(s): "
           f"{n_slam / 4:.0f} kernels and {dev_slam / 4:.1f} ms of device "
@@ -1250,22 +1149,18 @@ def phase_bench_loc(eng, frames, poses_gt, smi):
     if n_hamming[0] < 1:
         raise AssertionError(f"profile: no Hamming matrix call checked for "
                              f"syncs ({n_hamming[1]} beside a thread)")
-    return by_site, {"loc_fps": fps, "pass_fps": rates}
+    return loc
 
 
 # phases 13-16: RGB-D, localization mode, the GBA solvers
 LOC_NEXT = 12                  # corridor frames tracked in localization mode
-RGBD_FRAMES, RGBD_WARMUP, RGBD_STEP = 36, 12, 0.12   # bench.py: 60, 12
 GBA_FRAMES = 20
 
 
-def rgbd_config(capacity=None):
-    """The bench camera and widths with ``sensor=RGBD``."""
-    from orbslam2_tpu_torch.config import RGBD
-
-    cfg = bench_config()
-    return dataclasses.replace(cfg, sensor=RGBD,
-                               capacity=capacity or cfg.capacity)
+def rgbd_config():
+    """tools/bench.py's RGB-D leg's configuration without the reference
+    YAML: the bench camera and widths with ``sensor=RGBD``."""
+    return bench.rgbd_config(bench.bench_config())[0]
 
 
 def render_rgbd(world, cam, poses, rng):
@@ -1309,7 +1204,7 @@ def phase_rgbd_slice(smi):
     finally:
         restore()
     by_site = dict(ht2.hamming_top2.launches_by_site)
-    err = ate(eng.frame_poses(), poses_gt)
+    err = bench.ate(eng.frame_poses(), poses_gt)
     same = _replay_plain(records)
     print(f"[rgbd] {N_FRAMES} shaken corridor frames, RGB-D: median "
           f"{np.median(frame_ms[1:]):.1f} ms/frame after frame 0, KFs "
@@ -1329,53 +1224,16 @@ def phase_rgbd_slice(smi):
     return eng, world, rng, poses_gt, by_site, frames
 
 
-def phase_bench_rgbd(smi):
-    """Phase 14: bench.py's RGB-D leg (bench.py:233-262) on the port:
-    WindowedSlamEngine(window=4, loop closing on) over RGBD_FRAMES frames
-    at step 0.12, 12 warm-up frames, then the rest timed (bench.py: 60
-    frames, 48 timed) ending in flush() and a synchronize.  The leg's YAML
-    (Config/RealSense-D435i-IRD.yaml of the reference) is not in the
-    repository, so the bench camera and widths run with sensor=RGBD; the
-    world is the bench's, made from a fresh default_rng(0)."""
-    from orbslam2_tpu_torch.ops.hamming_top2 import (hamming_top2,
-                                                     reset_launch_counts)
-    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
-    from orbslam2_tpu_torch.utils import synthetic
-
-    cfg = rgbd_config()
-    rng = np.random.default_rng(0)
-    world = synthetic.make_world(rng)
-    # one window more for phase 15
-    poses_gt = synthetic.straight_trajectory(RGBD_FRAMES + 4, step=RGBD_STEP)
-    frames = render_rgbd(world, cfg.camera, poses_gt, rng)
-    eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
-    reset_launch_counts()              # the bench RGB-D leg's count
-    for i in range(RGBD_WARMUP):
-        eng.track_rgbd(*frames[i], i / 30.0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(RGBD_WARMUP, RGBD_FRAMES):
-        eng.track_rgbd(*frames[i], i / 30.0)
-    eng.flush()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    by_site = dict(hamming_top2.launches_by_site)
-    est = eng.frame_poses()
-    n_lost = sum(T is None for T in est)
-    err = ate(est, poses_gt[:RGBD_FRAMES])
-    n_timed = RGBD_FRAMES - RGBD_WARMUP
-    fps = n_timed / dt
-    kf_per_frame = eng.stats["kf_inserted"] / RGBD_FRAMES
-    print(f"[bench-rgbd] {RGBD_FRAMES} frames at {RGBD_STEP} m, "
-          f"{RGBD_WARMUP} warm-up: {fps:.3f} fps = {1e3 / fps:.1f} ms/frame "
-          f"over {n_timed} frames, KFs per frame {kf_per_frame:.4f} (as "
-          f"bench.py: inserted over all {RGBD_FRAMES}), live KFs "
-          f"{eng.n_kfs}, lost {n_lost}, ATE {err:.4f} m; hamming_top2 "
-          f"launches by path {by_site} ({smi})", flush=True)
-    if n_lost or not err < 0.15:
-        raise AssertionError(f"bench-rgbd: lost {n_lost}, ATE {err}")
-    return eng, frames, poses_gt, by_site, {
-        "rgbd_fps": fps, "kf_per_frame": kf_per_frame, "ate_m": err}
+def phase_bench_rgbd(smi, fr):
+    """Phase 14: tools/bench.py's RGB-D leg (bench.py:233-262) over the
+    first RGBD_FRAMES of bench.py's RGB-D frames at 0.12 m (bench.py: 60),
+    12 warm-up, the rest timed to a flush() and a synchronize: the
+    bench camera and widths with sensor=RGBD, as the leg's reference YAML
+    is not here; never lost, ATE < 0.15 m."""
+    res = bench.rgbd_leg(rgbd_config(), fr.rgbd, fr.rgbd_gt, BENCH_DEPTHS,
+                         log=_log(smi))
+    bench.check_rgbd(res)
+    return res
 
 
 def phase_localization(eng, world, rng, poses_gt, win, smi):
@@ -1429,7 +1287,7 @@ def phase_localization(eng, world, rng, poses_gt, win, smi):
         frame_ms.append(1e3 * (time.perf_counter() - t0))
     eng.fns = eng.fns._replace(track_loc_body=body)
     n_tracked = sum(T is not None for T in est)
-    err = ate(est, nxt) if n_tracked else float("nan")
+    err = bench.ate(est, nxt) if n_tracked else float("nan")
 
     T_back = poses_gt[RELOC_FRAME]
     gray, depth = render_rgbd(world, cfg.camera, [T_back], rng)[0]
@@ -1474,8 +1332,8 @@ def phase_localization(eng, world, rng, poses_gt, win, smi):
           f"map (live KFs, KFs inserted, KF slots, points) {size0} → "
           f"{map_size()}; windowed engine, one window: KFs inserted "
           f"{kf0} → {win['eng'].stats['kf_inserted']}, ATE "
-          f"{ate(win_est, win['poses'][RGBD_FRAMES:]):.4f} m; hamming_top2 "
-          f"launches by path {by_site} ({smi})", flush=True)
+          f"{bench.ate(win_est, win['poses'][RGBD_FRAMES:]):.4f} m; "
+          f"hamming_top2 launches by path {by_site} ({smi})", flush=True)
     if grew:
         raise AssertionError(f"localization: the map grew {size0} → "
                              f"{map_size()}")
@@ -1509,7 +1367,7 @@ def phase_gba_solvers(smi):
     from orbslam2_tpu_torch.runtime.slam import SlamEngine
     from orbslam2_tpu_torch.utils import lie, synthetic
 
-    cfg = rgbd_config(CapacityConfig())
+    cfg = rgbd_config().replace(capacity=CapacityConfig())
     rng = np.random.default_rng(0)
     world = synthetic.make_world(rng)
     poses_gt = synthetic.straight_trajectory(GBA_FRAMES, step=0.25)
@@ -1577,7 +1435,7 @@ def phase_gba_solvers(smi):
     def probe(*args):
         if not per_step:
             for n in (8, 16):
-                k, dev_ms, _, _ = _profiled(
+                k, dev_ms, _, _ = bench.profiled(
                     lambda: cg_solve(*args[:-1], n))
                 per_step[n] = (k, dev_ms)
             top.extend(_top_kernels(lambda: cg_solve(*args[:-1], 16)))
@@ -1640,35 +1498,20 @@ def _within_gba_bars(pose_gap, near_gap, rel_gap):
 
 # phases 17-18: mono (tests/test_mono.py:81-107; bench.py:199-231)
 MONO_FRAMES = 25
-MONO_PASS, MONO_WARMUP = 48, 28
 
 
-def mono_config(n_features=1000):
-    """The bench camera and capacity with ``sensor=MONOCULAR``."""
+def mono_config(n_features):
+    """The bench camera and capacity with ``sensor=MONOCULAR`` and
+    ``n_features`` (phase 17; tools/bench.py's mono leg sets the sensor
+    on the bench configuration itself)."""
     from orbslam2_tpu_torch.config import MONOCULAR, OrbConfig
 
-    return dataclasses.replace(bench_config(), sensor=MONOCULAR,
+    return dataclasses.replace(bench.bench_config(), sensor=MONOCULAR,
                                orb=OrbConfig(n_features=n_features))
 
 
 def _u8(img):
     return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def mono_ate(eng, poses_gt):
-    """Similarity-aligned ATE (mono has no scale) over the frames that have
-    a trajectory entry, from the one that initialized on, and their
-    count."""
-    from orbslam2_tpu_torch.utils import trajectory
-
-    entries = eng.trajectory
-    pairs = [(Te, Tg) for Te, Tg, e in zip(
-        eng.frame_poses(), poses_gt[len(poses_gt) - len(entries):], entries)
-        if Te is not None and not e.lost]
-    est = trajectory.centers_from_poses([Te for Te, _ in pairs])
-    gt = trajectory.centers_from_poses([Tg for _, Tg in pairs])
-    return trajectory.ate_rmse(est, gt, align=True, with_scale=True), \
-        len(pairs)
 
 
 def phase_mono_slice(smi):
@@ -1744,7 +1587,7 @@ def phase_mono_slice(smi):
     if first is None:
         raise AssertionError(f"mono: never initialized ({eng.stats})")
     used_h = bool(inits[-1].used_h)
-    err, n_tracked = mono_ate(eng, poses_gt)
+    err, n_tracked = bench.mono_ate(eng, poses_gt)
     path = 0.32 * MONO_FRAMES          # tests/test_mono.py:116
     same = _replay_plain(records)
     print(f"[mono] {MONO_FRAMES} frames of tests/test_mono.py's scene at "
@@ -1776,95 +1619,75 @@ def phase_mono_slice(smi):
                      "ms": float(np.median(frame_ms[first + 1:]))}
 
 
-def phase_bench_mono(smi):
-    """Phase 18: bench.py's mono leg (bench.py:199-231) on the port:
-    WindowedSlamEngine(MONOCULAR, window=4), loop closing on, the bench
-    world rendered gray along look_ahead_pose((0.18 i, 0, 0.04 i)), 28
-    warm-up frames, then two passes of 48, each ending in flush() and a
-    synchronize.  The world and frames come from a fresh default_rng(0)
-    (bench.py continues its stereo leg's generator).  fps per pass, ms
-    and keyframes a frame (bench.py's mono_kf_per_frame: inserted over
-    all frames), loops closed, the similarity-aligned ATE, launches by
-    site, every matching call that launched the kernel (track_ref_kf per
-    frame or in a window, match_for_sim3, reloc_attempt) replayed with the
-    plain version; then one more window under torch.profiler.  The engine
-    must not end LOST."""
-    from orbslam2_tpu_torch.ops import hamming_top2 as ht2
-    from orbslam2_tpu_torch.runtime import tracking
-    from orbslam2_tpu_torch.runtime.windowed import WindowedSlamEngine
-    from orbslam2_tpu_torch.utils import render_pool, synthetic
+def phase_bench_mono(smi, frames, poses_gt):
+    """Phase 18: tools/bench.py's mono leg (bench.py:199-231) over
+    bench.py's mono frames (drawn after its 172 stereo frames):
+    WindowedSlamEngine(MONOCULAR, window=4), loop closing on, 28 warm-up
+    frames, then two passes of 48, each ending in flush() and a
+    synchronize; fps per pass, ms and keyframes a frame (bench.py's
+    mono_kf_per_frame: inserted over all frames), loops closed, the
+    similarity-aligned ATE, launches by site, every matching call that
+    launched the kernel (track_ref_kf per frame or in a window,
+    match_for_sim3, reloc_attempt) replayed with the plain version, and
+    the leg's JSON keys as the bench reports them; then one more window,
+    rendered past the walk, under torch.profiler.  The engine must
+    initialize by frame 3 and track every warm-up frame.  Past the
+    warm-up this walk is marginal in both packages: on the CPU the JAX
+    engine and the port hover at the 30-inlier threshold and lose track
+    between frames 83 and 123, and some runs end LOST (PERF.md §6), so
+    an engine that ends LOST is reported as the bench does (its rates
+    null, with the reason), not failed."""
+    from orbslam2_tpu_torch.utils import synthetic
 
-    cfg = mono_config()
-    rng = np.random.default_rng(0)
-    world = synthetic.make_world(rng)
-    n_m = MONO_WARMUP + 2 * MONO_PASS
-    # the leg's frames, then one window more for the profile
-    poses_gt = [synthetic.look_ahead_pose(np.array([0.18 * i, 0.0, 0.04 * i]))
-                for i in range(n_m + 4)]
-    t0 = time.perf_counter()
-    frames = [_u8(f) for f in render_pool.render_frames(
-        synthetic.render_world, world, cfg.camera, poses_gt, rng, images=1)]
-    render_s = time.perf_counter() - t0
-    eng = WindowedSlamEngine(cfg, enable_loop_closing=True, window=4)
-    if eng.device.type != "cuda":
-        raise AssertionError(f"bench-mono: the engine chose {eng.device}")
     records, restore = _record_matches(
         "track_ref_kf", "window/track_ref_kf", "match_for_sim3",
         "reloc_attempt")
-    ht2.reset_launch_counts()          # the bench mono leg's count
+    cfg = bench.bench_config()
+    n_m = BENCH_DEPTHS.lengths()[1]
     try:
-        for i in range(MONO_WARMUP):
-            eng.track_monocular(frames[i], 0.1 * i)
-        torch.cuda.synchronize()
-        pass_fps, kf_counts, start = [], [], MONO_WARMUP
-        for _ in range(2):
-            kf0 = eng.stats["kf_inserted"]
-            t0 = time.perf_counter()
-            for i in range(start, start + MONO_PASS):
-                eng.track_monocular(frames[i], 0.1 * i)
-            eng.flush()
-            torch.cuda.synchronize()
-            pass_fps.append(MONO_PASS / (time.perf_counter() - t0))
-            kf_counts.append(eng.stats["kf_inserted"] - kf0)
-            start += MONO_PASS
+        res = bench.mono_leg(cfg, frames, poses_gt, BENCH_DEPTHS,
+                             log=_log(smi))
     finally:
         restore()
-    by_site = dict(ht2.hamming_top2.launches_by_site)
-    kf_per_frame = eng.stats["kf_inserted"] / n_m
-    err, n_tracked = mono_ate(eng, poses_gt[:n_m])
-    state = eng.state
+    eng = res["engine"]
+    if eng.device.type != "cuda":
+        raise AssertionError(f"bench-mono: the engine chose {eng.device}")
     same = _replay_plain(records)
+    keys, reasons = bench.mono_leg_keys(res, n_m)
+    entries = list(eng.trajectory)      # from the frame it initialized on
+    warm = BENCH_DEPTHS.warmup - (n_m - len(entries))
+    warm_lost = [i for i, e in enumerate(entries[:warm]) if e.lost]
+    # one window past bench.py's walk, its noise from another generator
+    world = synthetic.make_world(np.random.default_rng(0))
+    rng = np.random.default_rng(1)
+    extra = [synthetic.render_world(world, cfg.camera, T, rng, noise=1.0)
+             for T in bench.mono_poses(n_m + 4)[n_m:]]
 
     def window():
-        for i in range(n_m, n_m + 4):
-            eng.track_monocular(frames[i], 0.1 * i)
+        for i, img in enumerate(extra, n_m):
+            eng.track_monocular(img, 0.1 * i)
         eng.flush()
 
     kf0 = eng.stats["kf_inserted"]
-    n_k, dev_ms, wall_ms, _ = _profiled(window)
-    fps = float(np.median(pass_fps))
-    print(f"[bench-mono] {n_m} frames (rendered with 4 more in "
-          f"{render_s:.1f} s): pass fps {[round(f, 3) for f in pass_fps]}, "
-          f"median {fps:.3f} fps = {1e3 / fps:.1f} ms/frame, KFs per frame "
-          f"{kf_per_frame:.4f} (as bench.py: inserted over all {n_m}; per "
-          f"pass {kf_counts}), live KFs {eng.n_kfs}, loops closed "
-          f"{eng.stats['loops_closed']}, relocalized "
-          f"{eng.stats['reloc']}, tracked {n_tracked}, state {state}, "
-          f"similarity-aligned ATE {err:.4f} m; hamming_top2 launches by "
-          f"path {by_site}, {len(records)} matching calls replayed with the "
-          f"plain version: equal {same}; one window of 4 under the profiler "
+    n_k, dev_ms, wall_ms, _ = bench.profiled(window)
+    fps = res["fps"]
+    print(f"[bench-mono] {len(records)} matching calls replayed with the "
+          f"plain version: equal {same}; the leg's keys {keys}"
+          + (f" ({next(iter(reasons.values()))})" if reasons else "")
+          + f"; one window of 4 under the profiler "
           f"({eng.stats['kf_inserted'] - kf0} keyframe(s)): "
           f"{n_k / 4:.0f} kernels and {dev_ms / 4:.1f} ms of device time a "
           f"frame ({wall_ms / 4:.1f} ms wall under the profiler; busy "
           f"{100 * dev_ms / 4 * fps / 1e3:.1f}% of the unprofiled "
           f"{1e3 / fps:.1f} ms) ({smi})", flush=True)
-    if state == tracking.LOST:
-        raise AssertionError("bench-mono: the engine ended LOST")
+    if len(entries) < n_m - 3 or warm_lost:
+        raise AssertionError(f"bench-mono: entries from frame "
+                             f"{n_m - len(entries)}, lost in the warm-up "
+                             f"at {warm_lost}")
     if not same:
         raise AssertionError("bench-mono: kernel and plain differ on a "
                              "live matching call")
-    return by_site, {"mono_fps": fps, "pass_fps": pass_fps,
-                     "kf_per_frame": kf_per_frame, "ate_m": err}
+    return res
 
 
 # phase 19: the System facade (orbslam2_tpu_torch/runtime/system.py)
@@ -1907,10 +1730,10 @@ def phase_system(smi, frames):
     from orbslam2_tpu_torch.ops import hamming_top2 as ht2
     from orbslam2_tpu_torch.runtime import serialization, tracking
     from orbslam2_tpu_torch.runtime.system import System
-    from orbslam2_tpu_torch.tools import replay as replay_mod
+    from orbslam2_tpu_torch.tools import benchmark
     from orbslam2_tpu_torch.utils import synthetic
 
-    cfg = bench_config()
+    cfg = bench.bench_config()
     poses_gt = shaken_trajectory()
     world = synthetic.make_world(np.random.default_rng(0))  # phase 4's
     rng = np.random.default_rng(19)
@@ -1930,7 +1753,7 @@ def phase_system(smi, frames):
                 raise AssertionError(f"system: lost at frame {i}")
     finally:
         restore()
-    err = ate(sys1.engine.frame_poses(), poses_gt[:len(frames)])
+    err = bench.ate(sys1.engine.frame_poses(), poses_gt[:len(frames)])
     if not err < 0.15:
         raise AssertionError(f"system: ATE {err} m (need < 0.15)")
 
@@ -2064,11 +1887,13 @@ def phase_system(smi, frames):
         raise AssertionError(f"system: HPose {max(ird_err)} m off")
 
     t0 = time.perf_counter()
-    rep = replay_mod.run_synthetic_stereo(n_frames=REPLAY_FRAMES)
+    # the replay harness (tools/benchmark.py) prints its JSON line
+    rep = benchmark.main(["--kind", "synthetic", "--frames",
+                          str(REPLAY_FRAMES)])
     replay_s = time.perf_counter() - t0
-    if rep.n_frames != REPLAY_FRAMES or rep.n_tracked != REPLAY_FRAMES:
-        raise AssertionError(f"system: replay tracked {rep.n_tracked} of "
-                             f"{rep.n_frames} frames")
+    if rep["frames"] != REPLAY_FRAMES or rep["tracked"] != REPLAY_FRAMES:
+        raise AssertionError(f"system: replay tracked {rep['tracked']} of "
+                             f"{rep['frames']} frames")
     by_site = dict(ht2.hamming_top2.launches_by_site)
 
     same_ref = _replay_plain(records)
@@ -2089,9 +1914,10 @@ def phase_system(smi, frames):
           f"KFs kept {n_kfs}, {SYS_CALIB_FRAMES} frames tracked after; "
           f"track_ird over {IRD_FRAMES} RGB-D frames: HPose world position "
           f"within {max(ird_err):.4f} m; replay driver "
-          f"(run_synthetic_stereo, CapacityConfig(), {REPLAY_FRAMES} "
-          f"frames): median {rep.median_ms:.1f} ms, mean {rep.mean_ms:.1f} "
-          f"ms, tracked {rep.n_tracked}/{rep.n_frames}, {replay_s:.1f} s "
+          f"(tools/benchmark.py --kind synthetic: run_synthetic_stereo, "
+          f"CapacityConfig(), {REPLAY_FRAMES} frames): median "
+          f"{rep['median_ms']:.1f} ms, mean {rep['mean_ms']:.1f} ms, "
+          f"tracked {rep['tracked']}/{rep['frames']}, {replay_s:.1f} s "
           f"with rendering; hamming_top2 launches by path {by_site} ({smi})",
           flush=True)
     if not same_ref:
@@ -2100,8 +1926,8 @@ def phase_system(smi, frames):
     live_reloc_call(eng2, attempt, *calls[-1])
     return by_site, {"ms": float(np.median(frame_ms[1:])),
                      "save_ms": save_ms, "load_ms": load_ms, "mb": mb,
-                     "replay_median_ms": rep.median_ms,
-                     "replay_mean_ms": rep.mean_ms, "map_npz": map_npz}
+                     "replay_median_ms": rep["median_ms"],
+                     "replay_mean_ms": rep["mean_ms"], "map_npz": map_npz}
 
 
 # phase 20: the async pipeline (orbslam2_tpu_torch/runtime/pipeline.py)
@@ -2255,7 +2081,7 @@ def _profile_streams(eng, fn):
 def _new_async_engine():
     from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
 
-    eng = AsyncSlamEngine(bench_config())     # loop closing on, the card
+    eng = AsyncSlamEngine(bench.bench_config())     # loop closing on, the card
     if eng.device.type != "cuda" or eng._stream is None:
         raise AssertionError(f"async: the engine chose {eng.device}, "
                              f"worker stream {eng._stream}")
@@ -2291,7 +2117,7 @@ def phase_async(smi, frames, slice_ms):
         _stop_worker(eng)
     t_end = time.perf_counter()
     by_site = dict(ht2.hamming_top2.launches_by_site)
-    err = ate(eng.frame_poses(), shaken_trajectory())
+    err = bench.ate(eng.frame_poses(), shaken_trajectory())
     same = _replay_plain(records)
     idle = log["idle"]
     busy_share = idle.count(False) / max(len(idle), 1)
@@ -2383,7 +2209,7 @@ def phase_async_orbit(smi, frames, poses_gt, scene):
     from orbslam2_tpu_torch.runtime.pipeline import AsyncSlamEngine
     from orbslam2_tpu_torch.utils import render_pool, synthetic
 
-    cfg = bench_config()
+    cfg = bench.bench_config()
     more = outward_orbit(ORBIT_FRAMES, ORBIT_RADIUS, ORBIT_Z, ORBIT_TURNS,
                          stop=ORBIT_FRAMES + ASYNC_ORBIT_EXTRA)[len(frames):]
     rng = np.random.default_rng(20)
@@ -2871,7 +2697,7 @@ def phase_drivers(smi, corridor, rgbd_frames, slice_ms):
     from orbslam2_tpu_torch.ops import rectify
     from orbslam2_tpu_torch.utils import datasets
 
-    cfg = bench_config()
+    cfg = bench.bench_config()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         paths, blanked, write_ms = write_driver_layouts(
@@ -2939,7 +2765,7 @@ def _bow_margin(smi, voc):
     from orbslam2_tpu_torch.ops import image as image_ops
     from orbslam2_tpu_torch.utils import synthetic
 
-    cfg = bench_config()
+    cfg = bench.bench_config()
     world_a = synthetic.make_world(np.random.default_rng(0))
     world_b = synthetic.make_world(np.random.default_rng(1))
     T = synthetic.look_ahead_pose(np.array([0.3, 0.0, 2.0]), yaw=0.1)
@@ -3307,7 +3133,7 @@ def phase_mesh(smi, case, map_npz):
 
     # (c) the DB: detect_step on the mesh against the dense DB, then
     # System.load_map into a loop closer with the mesh
-    cfg = bench_config()
+    cfg = bench.bench_config()
     voc = voc_mod.default_vocabulary(k=cfg.capacity.vocab_k,
                                      levels=cfg.capacity.vocab_levels)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3702,24 +3528,28 @@ def main():
     clock.lap("phases 6-8")
     windowed_sites = phase_windowed_fallback(smi, corridor)
     clock.lap("phase 10")
-    eng, frames, poses_gt, bench_sites, slam = phase_bench_slam(smi)
-    loc_sites, loc = phase_bench_loc(eng, frames, poses_gt, smi)
-    del eng, frames
+    fr = bench_sequence(smi)
+    slam = phase_bench_slam(smi, fr)
+    loc = phase_bench_loc(slam, fr, smi)
+    del slam["engine"]
     clock.lap("phases 11-12")
     (eng, world, rng, poses_gt, rgbd_sites,
      rgbd_frames) = phase_rgbd_slice(smi)
-    weng, wframes, wposes, bench_rgbd_sites, rgbd = phase_bench_rgbd(smi)
+    rgbd = phase_bench_rgbd(smi, fr)
     localization_sites, _ = phase_localization(
         eng, world, rng, poses_gt,
-        {"eng": weng, "frames": wframes, "poses": wposes}, smi)
-    del eng, weng, wframes
+        {"eng": rgbd.pop("engine"), "frames": fr.rgbd, "poses": fr.rgbd_gt},
+        smi)
+    mono_walk = (fr.mono, fr.mono_gt)
+    del eng, fr
     clock.lap("phases 13-15")
     gba_times = phase_gba_solvers(smi)
     gba_case = gba_times.pop("case")
     clock.lap("phase 16")
     mono_sites, mono = phase_mono_slice(smi)
     clock.lap("phase 17")
-    bench_mono_sites, bench_mono = phase_bench_mono(smi)
+    bench_mono = phase_bench_mono(smi, *mono_walk)
+    del bench_mono["engine"], mono_walk
     clock.lap("phase 18")
     system_sites, system = phase_system(smi, corridor[:SYS_FRAMES])
     map_npz = system.pop("map_npz")
@@ -3754,29 +3584,29 @@ def main():
     by_path = {"slice (phase 4)": slice_sites, "loop (phase 6)": loop_sites,
                "reloc (phase 8)": reloc_sites,
                "windowed (phase 10)": windowed_sites,
-               "bench SLAM (phase 11)": bench_sites,
-               "bench LOC (phase 12)": loc_sites,
+               "bench SLAM (phase 11)": slam["launches"],
+               "bench LOC (phase 12)": loc["launches"],
                "RGB-D slice (phase 13)": rgbd_sites,
-               "bench RGB-D (phase 14)": bench_rgbd_sites,
+               "bench RGB-D (phase 14)": rgbd["launches"],
                "localization (phase 15)": localization_sites,
                "mono slice (phase 17)": mono_sites,
-               "bench mono (phase 18)": bench_mono_sites,
+               "bench mono (phase 18)": bench_mono["launches"],
                "System (phase 19)": system_sites,
                "async (phase 20)": async_sites,
                "drivers (phase 21)": driver_sites,
                "vocabulary (phase 22)": vocab_sites,
                "mesh (phase 23)": mesh_sites,
                "scale (phase 24)": scale_sites}
-    print(f"[bench] stereo SLAM {slam['slam_fps']:.3f} fps (median of "
+    print(f"[bench] stereo SLAM {slam['fps']:.3f} fps (median of "
           f"{[round(f, 3) for f in slam['pass_fps']]}), ATE "
-          f"{slam['ate_m']:.4f} m; stereo LOC {loc['loc_fps']:.3f} fps "
+          f"{slam['ate_m']:.4f} m; stereo LOC {loc['fps']:.3f} fps "
           f"(median of {[round(f, 3) for f in loc['pass_fps']]}); RGB-D "
-          f"SLAM {rgbd['rgbd_fps']:.3f} fps, ATE {rgbd['ate_m']:.4f} m; GBA "
+          f"SLAM {rgbd['fps']:.3f} fps, ATE {rgbd['ate_m']:.4f} m; GBA "
           f"chunk at 512 KF slots: CG {gba_times['cg_ms']:.1f} ms / "
           f"{gba_times['cg_gib']:.3f} GiB, dense {gba_times['dense_ms']:.1f} "
           f"ms / {gba_times['dense_gib']:.3f} GiB; mono slice "
           f"{mono['ms']:.1f} ms/frame, ATE {mono['ate_m']:.4f} m; mono SLAM "
-          f"{bench_mono['mono_fps']:.3f} fps (passes "
+          f"{bench_mono['fps']:.3f} fps (passes "
           f"{[round(f, 3) for f in bench_mono['pass_fps']]}), "
           f"{bench_mono['kf_per_frame']:.4f} KFs a frame; System "
           f"{system['ms']:.1f} ms/frame, save_map {system['save_ms']:.1f} "

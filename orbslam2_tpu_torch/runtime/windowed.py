@@ -263,6 +263,40 @@ class WindowedSlamEngine(SlamEngine):
         self.flush()
         return super().frame_poses()
 
+    def stereo_steps(self, left, right):
+        """Zero-argument calls of the device steps a stereo frame may run,
+        for a profiler: (one window of the pair ``left``, ``right``
+        repeated, one mapping step of that window's first frame into the
+        lowest free keyframe slot, the loop-detection step on the
+        reference keyframe, or None without loop closing).  Each starts
+        from the engine's live state and returns its result without
+        adopting it: the steps return new tensors, so the state stays as
+        it was.  The window is tracked once here, for the mapping step's
+        input."""
+        if not self._free_kf_slots:
+            raise RuntimeError("stereo_steps: no free keyframe slot")
+        slot = min(self._free_kf_slots)
+        pair = self._upload_pair(left, right)
+        state_T = self._t(np.stack([self.last_Tcw, self.last_Tcw]))
+
+        def window():
+            return self.f_track_window(self.ms, [pair] * self.window,
+                                       state_T, self.last_assoc,
+                                       self.last_inlier, self.ref_kf)
+
+        out = window()
+
+        def mapping():
+            return self.f_window_kf(
+                self.ms, out.fds, out.assocs, out.Tcws, 0, slot,
+                self.kf_ordinal, self.ref_kf, self.frame_id, 0.0, True,
+                True, self._zeros_p, self._zeros_p)
+
+        lc = self.loop_closer
+        detect = (None if lc is None else
+                  lambda: lc.fns.detect_step(self.ms, lc.db, self.ref_kf))
+        return window, mapping, detect
+
     # ------------------------------------------------------------- window
     def _dispatch_window(self, buf):
         """Track the window from the carried state; reads no result."""

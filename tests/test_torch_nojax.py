@@ -27,6 +27,9 @@ Also, with jax unimportable, a small vocabulary harvest and build, and
 small size (``test_parallel_runs_without_jax``); and the map-scale
 circuit's module and the trajectory tool
 (``test_scale_and_plot_tools_run_without_jax``).
+And, with jax and cv2 unimportable, the bench legs and the replay harness
+(``tools/bench.py``, ``tools/benchmark.py``;
+``test_bench_tools_run_without_jax``).
 And: ``chip_smoke.py`` refuses to run without a card, and fails on its
 own outside the repository, without printing a result.
 """
@@ -386,6 +389,39 @@ print("TOOLS_NOJAX_OK")
 """
 
 
+_BENCH_CHILD = r"""
+import json, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["cv2"] = None            # the oracle's keys then go null
+import torch
+torch.set_num_threads(2)
+from orbslam2_tpu_torch.config import (CameraConfig, CapacityConfig,
+                                       OrbConfig, STEREO, SlamConfig)
+from orbslam2_tpu_torch.tools import bench, benchmark
+cfg = SlamConfig(
+    camera=CameraConfig(fx=225.0, fy=225.0, cx=160.0, cy=120.0, bf=75.0,
+                        width=320, height=240, fps=10.0, th_depth=60.0),
+    orb=OrbConfig(n_features=200),
+    capacity=CapacityConfig(max_keyframes=16, max_map_points=2048,
+                            local_ba_keyframes=4, local_ba_points=512),
+    sensor=STEREO)
+depths = bench.Depths(warmup=8, measure=4, slam_passes=2, loc_windows=1,
+                      loc_passes=1, mono_passes=1, rgbd_frames=6,
+                      rgbd_warmup=2)
+out = bench.run("cpu", cfg, depths, log=lambda s: None)
+assert out["value"] > 0 and out["loc_mode_fps"] > 0, out
+assert out["oracle_repo_ate_m"] is None, out
+assert "cv2" in out["null_reasons"]["oracle_repo_ate_m"], out
+rep = benchmark.main(["--frames", "2", "--device", "cpu"])
+assert rep["frames"] == 2, rep
+bad = sorted(m for m in sys.modules if m == "orbslam2_tpu"
+             or m.startswith("orbslam2_tpu.")
+             or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
+assert not bad, bad
+print("BENCH_NOJAX_OK")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
@@ -444,6 +480,17 @@ def test_scale_and_plot_tools_run_without_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "TOOLS_NOJAX_OK" in out.stdout
     assert "ATE RMSE: 0.0000 m over 40 matched poses" in out.stdout
+
+
+def test_bench_tools_run_without_jax():
+    """With jax and cv2 unimportable: ``tools/bench.py`` runs every leg at
+    a small size on the CPU (the oracle's keys null for want of cv2) and
+    ``tools/benchmark.py`` replays two synthetic frames."""
+    out = subprocess.run([sys.executable, "-c", _BENCH_CHILD], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BENCH_NOJAX_OK" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
